@@ -1,12 +1,12 @@
 """Interactive simulation — drive the robot with the mouse while SLAM tracks.
 
-TPU-native equivalent of the reference's WPF Simulation window
+The equivalent of the reference's WPF Simulation window
 (Simulation/MainWindow.xaml.cs): left-drag teleports the lidar, right-drag
 aims its heading, the wheel zooms, and the Reset button restarts both
 pipelines — all while the jitted Hector + CoreSLAM steps run at the lidar
 scan rate in a background thread.
 
-    python examples/interactive_sim.py [--port 8801] [--tpu] [--no-coreslam]
+    python examples/interactive_sim.py [--port 8801] [--platform gpu] [--no-coreslam]
 
 then open http://localhost:8801 in a browser.
 """
@@ -21,8 +21,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--port", type=int, default=8801)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (TPU) platform instead of CPU")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="cpu")
     ap.add_argument("--no-coreslam", action="store_true",
                     help="run HectorSLAM only")
     ap.add_argument("--world", choices=["default", "office"],
@@ -33,7 +32,7 @@ def main() -> None:
 
     from slamnet_tpu.io.interactive import InteractiveSession, serve
 
-    session = InteractiveSession(platform="default" if args.tpu else "cpu",
+    session = InteractiveSession(platform=args.platform,
                                  run_coreslam=not args.no_coreslam,
                                  world=args.world)
     srv = serve(session, port=args.port)

@@ -19,15 +19,13 @@ import time
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scans", type=int, default=200)
-    ap.add_argument("--platform", choices=["cpu", "tpu"], default="cpu")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="cpu")
     ap.add_argument("--out", default="/tmp/slamnet_demo.slog")
     args = ap.parse_args()
 
-    if args.platform == "cpu":
-        os.environ["JAX_PLATFORMS"] = "cpu"
+    from slamnet_tpu.runtime import select_platform
+    select_platform(args.platform)
     import jax
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 

@@ -29,8 +29,7 @@ def main():
     ap.add_argument("--out-dir", default="/tmp/slamnet_dataset")
     ap.add_argument("--max-scans", type=int, default=None)
     ap.add_argument("--map-size-m", type=float, default=40.0)
-    ap.add_argument("--platform", default=None,
-                    help="cpu to force the CPU backend")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="cpu")
     ap.add_argument("--robust", action="store_true",
                     help="enable the production robustness guards "
                          "(xy step clamp, match-jump reject, GN damping) — "
@@ -38,11 +37,9 @@ def main():
                          "(examples/data/adversarial_180.clf)")
     args = ap.parse_args()
 
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
+    from slamnet_tpu.runtime import select_platform
+    select_platform(args.platform)
     import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
     import dataclasses
 
     import jax.numpy as jnp
@@ -78,7 +75,7 @@ def main():
         map_resolution=args.map_size_m / 400.0)
     if args.robust:
         # measured on adversarial_180.clf: rms/max ATE 0.112/2.050 without
-        # guards -> 0.034/0.234 with (docs/PERF.md dataset section)
+        # guards -> 0.034/0.234 with (PERF.md dataset section)
         hcfg = dataclasses.replace(hcfg, xy_step_clamp_px=10.0,
                                    max_match_jump=1.0, gn_damping=0.1)
 

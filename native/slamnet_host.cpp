@@ -1,8 +1,8 @@
-// slamnet_host — native host runtime for the TPU SLAM framework.
+// slamnet_host — native host runtime for the slamnet_tpu SLAM framework.
 //
-// The TPU-native counterpart of the reference's host runtime: where slam.net
+// The accelerator counterpart of the reference's host runtime: where slam.net
 // runs a persistent thread pool + signaling queue for intra-scan parallelism
-// (BaseSLAM/ParallelWorker.cs, SignalConcurrentQueue.cs), a TPU framework's
+// (BaseSLAM/ParallelWorker.cs, SignalConcurrentQueue.cs), an accelerator's
 // host side is an IO pipeline: ingest lidar revolutions, de-skew/pack them into
 // fixed-shape device-ready buffers, and hand them to the accelerator without
 // blocking the sensor thread.  This library provides:

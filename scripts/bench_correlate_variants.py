@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Correlative-search restructuring experiments (VERDICT r04 item 2).
+"""Correlative-search restructuring experiments.
 
-The search is 86% of CoreSLAM's per-scan cost (530 of 615 us) and 100% of the
-particle grid scorer; its dominant operand is the per-scan rebuild of W*W
+The search was most of CoreSLAM's per-scan cost on the first accelerator and
+all of the particle grid scorer; its dominant operand is the per-scan rebuild of W*W
 shifted hole-map copies x 3 planes (hi/lo/mask) = ~54 MB/scan.  Variants:
 
   base     ops/correlate.correlative_scores as shipped (hi/lo/mask planes)
@@ -23,7 +23,6 @@ Usage: python scripts/bench_correlate_variants.py [--scans 512]
 """
 import argparse
 import dataclasses
-import os
 import sys
 import time
 
@@ -32,6 +31,9 @@ sys.path.insert(0, ".")
 
 def make_variants():
     import jax
+
+    from slamnet_tpu.runtime import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     from slamnet_tpu.core.geometry import csharp_trunc
     from slamnet_tpu.ops import correlate
@@ -136,10 +138,6 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     import jax.numpy as jnp
     import numpy as np
 

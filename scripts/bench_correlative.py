@@ -8,7 +8,7 @@ a WxW window of integer pixel shifts.  Candidates:
   gatherWW   — ONE lax.gather: K*N indices, slice_sizes=(W,W) from zero-padded
                map, then [K,N,W,W] -> sum over N
   scatmm     — per-theta point-count grids via ONE scatter-add (K*N updates),
-               then [K, S*S] @ [S*S, W*W] shifted-map matmul on the MXU
+               then [K, S*S] @ [S*S, W*W] shifted-map matmul
   gather_rows— ONE gather of (1,W) row slices for each of W dy shifts folded
                into indices: K*N*W indices, slice (1,W)
 """

@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Fleet-mode throughput: B batched Hector instances vs one unbatched instance.
 
-Round-1 finding (docs/PERF.md): the all-vmap fleet ran at 127 instance-scans/s
-at B=64 — a 10x regression vs one instance — because vmap lowers the motion
-gate to select and every instance pays the serialized occupancy scatter every
-scan.  Round-2 fix: vmapped matching + lax.scan over instances with a REAL
+Early finding: the all-vmap fleet ran 10x slower per instance than one
+instance, because vmap lowers the motion gate to select and every instance
+pays the occupancy scatter every scan.  Round-2 fix: vmapped matching + lax.scan over instances with a REAL
 lax.cond per instance (models/fleet.py).
 
 Each instance replays a phase-shifted slice of the bench loop trajectory, so
@@ -23,7 +22,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--scans", type=int, default=128)
-    ap.add_argument("--platform", choices=["tpu", "cpu"], default="tpu")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="gpu")
     ap.add_argument("--dense", action="store_true",
                     help="dense polar free-fill updates (faster than line "
                          "scatter under the fleet update scan)")
@@ -35,12 +34,10 @@ def main():
                     help="Levenberg diagonal damping (gn_damping)")
     args = ap.parse_args()
 
-    import os
-    if args.platform == "cpu":
-        os.environ["JAX_PLATFORMS"] = "cpu"
+    from slamnet_tpu.runtime import select_platform, setup_compile_cache
+    select_platform(args.platform)
+    setup_compile_cache()
     import jax
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
@@ -52,7 +49,7 @@ def main():
 
     # production serving config: translation step clamp on (two trajectory
     # slices bootstrap at a degenerate top-corridor view where an unclamped GN
-    # step throws the pose off-map; the clamp bounds them — see docs/PERF.md)
+    # step throws the pose off-map; the clamp bounds them — see PERF.md)
     cfg = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
                        xy_step_clamp_px=10.0, match_subsample=args.subsample,
                        dense_free_fill=args.dense,

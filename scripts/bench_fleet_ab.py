@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """In-process A/B: bare batched gather vs real _match_batch iteration cost.
 
-docs/PERF.md records 100x run-to-run variance across processes; this script
+PERF.md records 100x run-to-run variance across processes; this script
 times, in ONE process, back to back:
   a) bare [4,B,N] flat gather in a scan (loop-variant table)
   b) fused_gn_iteration_batch in a scan (synthetic random table)

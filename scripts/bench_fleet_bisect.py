@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Bisect _match_batch's ~4.5 ms/batch-scan: iterations vs levels vs fixed
+"""Bisect _match_batch's cost per batch-scan: iterations vs levels vs fixed
 per-scan overhead.  Times T-scan matcher-only replays at B=64 for several
 (num_levels, estimate_iterations) combinations.
 """

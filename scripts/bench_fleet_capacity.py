@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Fleet update-capacity ablation — the in-tree reproduction of the round-3
-table that changed the default to UNCAPPED updates (docs/PERF.md: deferral
+table that changed the default to UNCAPPED updates (PERF.md: deferral
 bursts leave instances matching against stale maps; cap=8 cost 27x the
 median-instance ATE for ~25% more throughput).
 
@@ -22,7 +22,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--scans", type=int, default=256)
-    ap.add_argument("--platform", choices=["tpu", "cpu"], default="tpu")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="gpu")
     ap.add_argument("--capacities", default="8,16,32,0",
                     help="comma list; 0 = uncapped (the default config)")
     ap.add_argument("--damping", type=float, default=0.1,
@@ -32,15 +32,10 @@ def main():
                          "reference-parity solve)")
     args = ap.parse_args()
 
-    import os
-    if args.platform == "cpu":
-        os.environ["JAX_PLATFORMS"] = "cpu"
+    from slamnet_tpu.runtime import select_platform, setup_compile_cache
+    select_platform(args.platform)
+    setup_compile_cache()
     import jax
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
     import dataclasses
 
     import jax.numpy as jnp

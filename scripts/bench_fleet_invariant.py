@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Confirm the fleet matcher's fixed ~0.1 ms/GN-iteration cost is gather
-operand prep on the loop-CARRIED table (docs/PERF.md: loop-invariant tables
+"""Test whether the fleet matcher's fixed per-GN-iteration cost is gather
+operand prep on the loop-CARRIED table (PERF.md: loop-invariant tables
 get their operand prep hoisted; loop-variant ones pay it per use).
 
 In ONE process, times a T-scan matcher-only replay at B=64:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Micro-bench: where do the batched matcher's ~470 us/GN-iteration go?
+"""Micro-bench: where does the batched matcher's per-GN-iteration time go?
 
-Times, at B=64 N=128 on the real chip, per iteration:
+Times, at B=64 N=128 on the GPU, per iteration:
   a) bare [4,B,N] flat-table gather, table loop-VARIANT (scan carry — what
      replay_fleet does)
   b) same gather, table loop-INVARIANT (closed over / xs)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Isolate the fleet batch-scan overhead: the GN math is ~0.7 us/iteration
-(scripts/bench_fleet_match.py) yet match-only replay costs ~7 ms/batch-scan.
+"""Isolate the fleet batch-scan overhead: the GN math is a small part of
+it (scripts/bench_fleet_match.py), the rest is machinery around it.
 
 Times T-scan replays at B=64 with progressively more machinery:
   a) matcher only (maps in carry, no gate/update phase at all)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Micro-bench: formulations of the 2x2 bilinear-neighborhood fetch on TPU.
+"""Micro-bench: formulations of the 2x2 bilinear-neighborhood fetch.
 
 The fused matcher's per-iteration cost is dominated by gathering 4 neighbors
-for N beams from the map table.  XLA TPU gathers serialize over INDICES, so
-fewer indices x bigger slices should win.  Candidates:
+for N beams from the map table.  Where gathers cost per INDEX, fewer
+indices x bigger slices should win.  Candidates:
 
   flat4   — one stacked [4, N] scalar gather from the flat table (current)
   slice22 — lax.gather: N indices, slice_sizes=(2,2) from the [S,S] view
@@ -81,7 +81,7 @@ def run_rows2(table2d, xi, yi):
 
 
 def run_row_slice128(table2d, xi, yi):
-    """Gather (2,128) slices — probe whether slice width is free on TPU."""
+    """Gather (2,128) slices — probe whether slice width is free."""
     dn = jax.lax.GatherDimensionNumbers(
         offset_dims=(1, 2), collapsed_slice_dims=(),
         start_index_map=(0, 1))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Isolate per-GN-iteration cost and the gated-update overhead on TPU.
+"""Isolate per-GN-iteration cost and the gated-update overhead.
 
 Part 1: one fused_gn_iteration chain (15 iters) in replay — current vs variants:
   cur    — ops/gn.fused_gn_iteration as-is (two jnp.dot)
@@ -7,7 +7,7 @@ Part 1: one fused_gn_iteration chain (15 iters) in replay — current vs variant
   lean   — red9 + inline scalar solve (no stack/cross), fewer tiny ops
 
 Part 2: lax.cond(update_maps) replay with predicate always False vs always True
-vs no cond at all — where do the 325 us/scan go?
+vs no cond at all — where does the per-scan time go?
 """
 import os
 import sys

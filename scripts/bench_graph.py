@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Graph-SLAM bench in isolation (the bench.py graph section): keyframes +
 loop closures + pose-graph optimization over a 512-scan revisit trajectory.
-Run on the real TPU: python scripts/bench_graph.py
+Run on the GPU: python scripts/bench_graph.py
 """
 import json
 import os

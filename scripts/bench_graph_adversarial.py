@@ -3,7 +3,7 @@
 
 On the clean simulator bench, closures nudge ATE slightly WORSE (the
 scan-to-scan loop edges are noisier than near-perfect sim odometry —
-docs/PERF.md graph section); this measures the regime closures exist for:
+PERF.md graph section); this measures the regime closures exist for:
 an adversarial revisit log (180-degree FoV, 20% dropout, slips, systematic
 odometry drift — io/datasets.simulate_adversarial_log) over the turning
 rect_revisit trajectory, replayed three ways:
@@ -25,20 +25,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="gpu")
     ap.add_argument("--loops", type=int, default=2)
     args = ap.parse_args()
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
     if args.platform == "cpu":
         os.environ.setdefault("XLA_FLAGS",
                               "--xla_force_host_platform_device_count=8")
+    from slamnet_tpu.runtime import select_platform, setup_compile_cache
+    select_platform(args.platform)
+    setup_compile_cache()
     import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
     import numpy as np
     import jax.numpy as jnp
 

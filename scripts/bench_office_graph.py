@@ -8,7 +8,7 @@ room tour with drifting wheel odometry (io/datasets.drifting_odometry) and a
 
   * scan-to-map tracking — which in a persistent global map acts as implicit
     loop closure and measured net-neutral on every in-map bench
-    (docs/PERF.md) — has nothing to match against in rooms B/C/D, so the
+    (PERF.md) — has nothing to match against in rooms B/C/D, so the
     track rides the drifting odometry prior (bounded by the
     min_match_in_map_frac guard at the map boundary);
   * the pose graph stores keyframe SCANS, so its loop-closure path
@@ -36,19 +36,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="gpu")
     ap.add_argument("--loops", type=int, default=2)
     ap.add_argument("--step", type=float, default=0.25)
     ap.add_argument("--max-range", type=float, default=10.0)
     args = ap.parse_args()
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
+    from slamnet_tpu.runtime import select_platform, setup_compile_cache
+    select_platform(args.platform)
+    setup_compile_cache()
     import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
     import numpy as np
     import jax.numpy as jnp
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """One-hot matcher micro-variants (round 4): the per-level row matmuls are
-far from the MXU floor (~32 us/scan of pure matmul at bench shapes), so the
-cost is materializing the one-hot operands (oh_rows [2N, R] f32 + two
-[N, lanes] lane masks ~ 6 MB/iteration of VPU+HBM work).  Variants:
+far from the matmul floor, so the cost is materializing the one-hot operands
+(oh_rows [2N, R] f32 + two [N, lanes] lane masks ~ 6 MB/iteration of
+memory traffic).  Variants:
 
   base       ops/gn.fused_gn_iteration_onehot_stats as shipped
   oh_bf16    one-hot masks built in bf16 (half the bytes; values 0/1 exact)
@@ -26,9 +26,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+
+    from slamnet_tpu.runtime import setup_compile_cache
+    setup_compile_cache()
     import numpy as np
     import jax.numpy as jnp
 

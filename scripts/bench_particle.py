@@ -2,7 +2,7 @@
 """Particle-layer bench modes in isolation (the bench.py particle section,
 runnable without the full bench): exact / grid / grid_dense scoring over the
 512-scan full-field replay — pass --all for the full 5-mode table
-(+ sub4, grid_small).  Run on the real TPU: python scripts/bench_particle.py
+(+ sub4, grid_small).  Run on the GPU: python scripts/bench_particle.py
 """
 import json
 import os

@@ -19,14 +19,12 @@ def main():
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "examples", "data", "adversarial_180.clf"))
     ap.add_argument("--scans", type=int, default=360)
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="cpu")
     args = ap.parse_args()
 
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
-    import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    from slamnet_tpu.runtime import select_platform, setup_compile_cache
+    select_platform(args.platform)
+    setup_compile_cache()
     import numpy as np
 
     from slamnet_tpu.io import datasets

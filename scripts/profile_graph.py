@@ -24,16 +24,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scans", type=int, default=512)
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="gpu")
     args = ap.parse_args()
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
+    from slamnet_tpu.runtime import select_platform, setup_compile_cache
+    select_platform(args.platform)
+    setup_compile_cache()
     import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
     import numpy as np
     import jax.numpy as jnp
 

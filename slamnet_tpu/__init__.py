@@ -1,4 +1,4 @@
-"""slamnet_tpu — a TPU-native 2D lidar SLAM framework (JAX / XLA / Pallas / pjit).
+"""slamnet_tpu — a 2D lidar SLAM framework for the GPU (JAX / XLA / Pallas).
 
 Brand-new implementation of the capabilities of mikkleini/slam.net (C#):
 
@@ -8,7 +8,7 @@ Brand-new implementation of the capabilities of mikkleini/slam.net (C#):
 - ``models.hector``    — HectorSLAM: Gauss-Newton scan-to-map matching with bilinear
   log-odds gradient interpolation over a multi-resolution occupancy pyramid
   (reference: /root/reference/HectorSLAM/).
-- ``models.particle``  — batched many-particle CoreSLAM scoring layer (TPU-only design).
+- ``models.particle``  — batched many-particle CoreSLAM scoring layer (no reference counterpart).
 - ``graph``            — keyframe pose-graph with loop closures, distributed Gauss-Newton
   (greenfield; no counterpart in the reference).
 - ``parallel``         — device-mesh sharding: candidate-batch data parallelism,

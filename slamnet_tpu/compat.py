@@ -4,7 +4,7 @@ A user of the reference drives `CoreSLAMProcessor` / `HectorSLAMProcessor`
 objects with `Update(...)` / `Reset()` calls and reads `Pose` / `MatchPose`
 properties (CoreSLAM/CoreSLAMProcessor.cs:119-175,717; HectorSLAM/Main/
 HectorSLAMProcessor.cs:66-138).  These thin stateful wrappers provide the same
-surface over the functional TPU core — each Update is one jitted device step;
+surface over the functional core — each Update is one jitted device step;
 state lives on device between calls.
 
 The functional API (models/*) remains the primary interface; use it for
@@ -140,8 +140,8 @@ class HectorSLAMProcessor:
         iters = tuple(estimate_iterations) if estimate_iterations \
             else tuple([3] * num_depth)
         # matcher_mode: "gather" (reference-exact path) or
-        # "onehot_highest"/"onehot_bf16" — the production MXU matcher
-        # (docs/PERF.md); no reference counterpart, exposed for users who
+        # "onehot_highest"/"onehot_bf16"/"pallas" — the faster matchers
+        # (PERF.md); no reference counterpart, exposed for users who
         # switch for throughput without leaving the OO surface.
         self.cfg = HectorConfig(
             map_resolution=map_resolution, map_size=map_size,

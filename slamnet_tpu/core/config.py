@@ -44,8 +44,8 @@ class CoreSlamConfig(_Overlayable):
     sigma_theta: float = math.pi / 18   # 10 deg in radians (sim ctor arg)
     # Reference: iterationsPerThread=1000 x numSearchThreads=4 => 4000 perturbed
     # candidates + the search pose itself per scan (CoreSLAMProcessor.cs:624-653,
-    # 674-710).  TPU-native: one batch of `num_candidates` scored in a fused kernel;
-    # 4096 keeps the reference's search budget and pads to a lane-friendly size.
+    # 674-710).  Here: one batch of `num_candidates` scored in a fused kernel;
+    # 4096 keeps the reference's search budget at a power-of-two size.
     num_candidates: int = 4096
     quality: int = 50                   # map-update alpha 1..255 (:80)
     hole_width: float = 2.0             # meters (sim sets 2.0, default 0.6) (:85)
@@ -65,8 +65,8 @@ class CoreSlamConfig(_Overlayable):
     dense_hole_fill: bool = False
     # False (default): reference-parity per-beam V-profile ray draw
     # (ops/holemap.update_hole_map).  True: scatter-free dense polar fill
-    # (update_hole_map_dense) — order-of-magnitude faster on TPU (XLA scatter
-    # serializes), denser evidence between beams; documented divergence.
+    # (update_hole_map_dense) — no per-ray scatters, denser evidence between
+    # beams; documented divergence.
     dense_obstacle_fill: bool = False
     # Same trade for the obstacle map (ops/obstacle.update_obstacle_map_dense).
     angle_bins: int = 256
@@ -106,14 +106,14 @@ class HectorConfig(_Overlayable):
     dense_free_fill: bool = False
     # False (default): reference-parity Bresenham-line free marking.
     # True: scatter-free dense polygon fill (ops/logodds.update_occupancy_dense)
-    # — 10-20x faster map updates, denser free evidence; use for fleet/mapping-
+    # — no per-ray scatters, denser free evidence; use for fleet/mapping-
     # heavy workloads (documented semantic difference).  Uncovered angular
     # sectors are never marked free (empty polar bins stay at range 0), so
     # partial-FoV sensors are handled; the round-4 "6x worse on the
     # 180-degree log" finding was actually WALL EROSION from a zero free
     # margin, fixed by dense_free_margin_px (see below): 0.208 -> 0.038 m
     # rms at the default margin (line mode: 0.034; max err 0.065 vs line's
-    # 0.234), and 0.015 at margin 2.0 (docs/PERF.md).
+    # 0.234), and 0.015 at margin 2.0 (PERF.md).
     dense_free_margin_px: float = 0.75
     # Moat of unmarked cells the dense fill leaves in front of each measured
     # range (per-level pixels).  0.5 (the round-4 behavior) lets range noise
@@ -121,7 +121,7 @@ class HectorConfig(_Overlayable):
     # one-cell ridge; a slipped odometry hint then locks onto a false
     # minimum (measured on adversarial_180.clf: 0.208 m rms at 0.5 vs 0.038
     # at 0.75 / 0.015 at 2.0).  The default is the largest value that holds
-    # the CLEAN bench's strict ATE gate (margin sweep, docs/PERF.md round
+    # the CLEAN bench's strict ATE gate (margin sweep, PERF.md round
     # 5): clean ATE 0.002082 at 0.75 (fixed-mode 0.002109) vs 0.00223+ at
     # >= 1.25.  Degraded-sensor deployments should raise it to 1.5-2.0.
     early_exit_tol: float = 0.0
@@ -129,15 +129,14 @@ class HectorConfig(_Overlayable):
     # > 0: stop a level's GN iterations once the step norm (map pixels /
     # radians) drops below the tolerance — converged iterations are numeric
     # no-ops, so accuracy is unchanged while typical matches finish in a
-    # fraction of the budget (lax.while_loop; see docs/PERF.md).
+    # fraction of the budget (lax.while_loop; see PERF.md).
     occupied_cap: float = 50.0          # log-odds cap (OccGridMap.cs:211)
     deriv_clamp: float = 0.2            # GN rotation step clamp, rad (ScanMatcher.cs:107-117)
     match_subsample: int = 1
     # 1 (default): match on every beam (reference behavior).  k > 1: the GN
-    # MATCHER uses every k-th beam (map updates still use all beams) — the
-    # matcher is gather-rate-bound on TPU (~117M gathered elements/s,
-    # docs/PERF.md), so matching cost drops ~k-fold for a small precision
-    # trade (H conditioning scales with sqrt(beams)).  Production fleet
+    # MATCHER uses every k-th beam (map updates still use all beams) — less
+    # matching work for a small precision trade (H conditioning scales with
+    # sqrt(beams)).  Production fleet
     # serving uses 4 (100 of 400 beams) — ATE verified in scripts/bench_fleet.
     xy_step_clamp_px: float = 0.0
     # 0 (default): reference parity — only the rotation step is clamped, so a
@@ -148,25 +147,20 @@ class HectorConfig(_Overlayable):
     # +/- this many map pixels (recommended ~10 for production serving).
     matcher_mode: str = "gather"
     # "gather" (default): stacked [4,N] take.  "onehot_highest" /
-    # "onehot_bf16": the 4-neighbor fetch as one-hot row matmuls on the MXU
-    # (ops/gn.fused_gn_iteration_onehot_stats) — wins when the map table is a
-    # loop-carried (variant) operand, where XLA's gather rate is the matcher
-    # wall (docs/PERF.md).  "onehot_highest" is bit-identical to "gather";
-    # "onehot_bf16" lets the MXU round the table (fast path, ATE-gated).
-    # "pallas": the whole coarse-to-fine match as ONE kernel with every
-    # level's row table VMEM-resident across all GN iterations
-    # (ops/pallas_onehot.py; onehot_bf16 selection semantics, 2.9x faster).
-    # Scope limits: requires offset == (0, 0) (asserted; the only value any
-    # model driver uses) and fixed iteration counts — early_exit_tol is
-    # rejected (measured unnecessary: converged iterations are no-ops and
-    # the kernel's fixed-iteration cost is below the XLA early-exit path).
+    # "onehot_bf16": the 4-neighbor fetch as one-hot row matmuls
+    # (ops/gn.fused_gn_iteration_onehot_stats; "onehot_highest" is
+    # bit-identical to "gather", "onehot_bf16" rounds the table, ATE-gated;
+    # both are slower than "gather" on the GPU, PERF.md).
+    # "pallas": the whole coarse-to-fine match as ONE kernel program
+    # (ops/pallas_match.py, Triton route) with the gather matcher's
+    # semantics; fixed iteration counts only — early_exit_tol is rejected.
     max_match_jump: float = 0.0
     # 0 (default): reference parity — the matched pose is always adopted.
     # > 0: robustness extension — if the matcher moved more than this many
     # METERS from its hint in one scan (physically impossible at real scan
     # rates; the signature of a degenerate-view solve, README.md:39), the
     # match is REJECTED and the hint kept.  Bounds per-scan damage in
-    # production serving; see docs/PERF.md fleet robustness notes.
+    # production serving; see PERF.md fleet robustness notes.
     min_match_in_map_frac: float = 0.0
     # 0 (default): reference parity — a match is adopted however few beams
     # landed inside the map.  > 0: robustness extension for worlds LARGER
@@ -189,10 +183,9 @@ class HectorConfig(_Overlayable):
     # Max instances whose gated map update runs per fleet batch-scan
     # (models/fleet.update_fleet phase 3; effective cap = min(B, this)).
     # Instances beyond the budget defer one scan (their gate stays armed).
-    # Default = unlimited (every gated instance updates): measured at B=64 on
-    # v5e, budget deferral was the DOMINANT fleet accuracy cost — cap=8 gave
-    # median instance ATE 0.089 m vs 0.0033 m uncapped, for only ~25% more
-    # throughput (docs/PERF.md round-3 fleet findings).  Cap it only when
+    # Default = unlimited (every gated instance updates): budget deferral was
+    # measured as the DOMINANT fleet accuracy cost (matching against stale
+    # maps compounds the error; PERF.md).  Cap it only when
     # map-update bandwidth is provably the bottleneck and the ATE trade is
     # measured; per-shard in the mesh fleet, so capacity scales with devices.
     offset: Tuple[float, float] = (0.0, 0.0)  # map offset (MapRepMultiMap passes zero)
@@ -253,7 +246,7 @@ class SimConfig(_Overlayable):
 
 @dataclass(frozen=True)
 class ParticleConfig(_Overlayable):
-    """Batched particle layer (BASELINE.json config 4; TPU-only design)."""
+    """Batched particle layer (BASELINE.json config 4; no reference counterpart)."""
 
     num_particles: int = 8192
     top_k: int = 64                     # refine budget after coarse scoring
@@ -261,8 +254,8 @@ class ParticleConfig(_Overlayable):
     resample_ess_frac: float = 0.5      # resample when ESS < frac * N
     scorer: str = "exact"
     # Population scoring kernel.  "exact": one fused [P, N] gather batch per
-    # scan (the BASELINE config-4 contract; gather-rate bound, docs/PERF.md).
-    # "grid": the correlative count-grid x shifted-planes MXU scorer
+    # scan (the BASELINE config-4 contract).
+    # "grid": the correlative count-grid x shifted-planes matmul scorer
     # (ops/correlate) evaluated once per scan on the ccfg.corr_* grid around
     # the odometry prior; each particle reads its nearest (theta-bin, pixel-
     # shift) cell — scores quantized to (1 px, 1 bin), particles outside the
@@ -291,7 +284,7 @@ class PoseGraphConfig(_Overlayable):
     # keyframes, so the incremental solve converges in 1 iteration unless a
     # loop closure just landed (measured on the 512-scan turning revisit
     # bench: 1/3 vs 3/3 gives IDENTICAL ATE/keyframes/closures at +16%
-    # throughput, scripts/profile_graph.py, docs/PERF.md round 4; also
+    # throughput, scripts/profile_graph.py, PERF.md round 4; also
     # validated on the adversarial drifting log, scripts/
     # bench_graph_adversarial.py --optimize-iterations ablation).  For
     # robust-kernel-heavy workloads (huber_delta > 0 with many suspect
@@ -318,23 +311,21 @@ class PoseGraphConfig(_Overlayable):
 
 def serving_hector_config(**overrides) -> "HectorConfig":
     """The production FLEET-SERVING profile — every knob picked from a
-    measured ablation (docs/PERF.md fleet sections), so deployments start
+    measured ablation (PERF.md fleet sections), so deployments start
     from the data instead of re-deriving it:
 
-    - ``match_subsample=4`` + ``matcher_mode="onehot_bf16"``: the measured
-      serving point (B=64: 2394 -> ~5050 instance-scans/s inside the bench's
-      2x ATE gate; the Pallas batched matcher measured a null result here);
+    - ``match_subsample=4`` + ``matcher_mode="onehot_bf16"``: the serving
+      point chosen inside the bench's 2x ATE gate (to be re-chosen on the
+      GPU, where the matcher kernel is faster; PERF.md);
     - ``xy_step_clamp_px=10`` + ``max_match_jump=1.0``: bound the damage of
       degenerate-view solves (unrecoverable off-map excursions otherwise);
     - ``gn_damping=0.1``: at the T=256 uncapped serving horizon this halves
       worst-case excursions (max 3.97 -> 1.78 m) at NO median-instance cost
       (0.0051 -> 0.0049) — the round-4 capacity ablation's conclusion,
       encoded as the default it recommended (VERDICT r04 item 6);
-    - ``dense_free_fill=True``: with the one-hot fill lookup + wall-erosion
-      margin (round 5) the dense fill is 2.3x fleet throughput (4484 ->
-      10423 inst-scans/s at B=64 T=256) at 5x BETTER max error (0.119 ->
-      0.024 m; median 0.0033 -> 0.0041) — the round-2 "line mode in fleet"
-      advice predates both fixes;
+    - ``dense_free_fill=True``: with the wall-erosion margin the dense fill
+      gave higher fleet throughput at a 5x better max error (0.119 ->
+      0.024 m; median 0.0033 -> 0.0041);
     - update capacity UNCAPPED (the HectorConfig default): budget deferral
       compounds map-staleness error ~20x on the median instance for ~25%
       throughput.

@@ -1,4 +1,4 @@
-"""Scan containers as fixed-shape arrays (TPU discipline: static shapes, masks).
+"""Scan containers as fixed-shape arrays (static shapes, validity masks).
 
 The reference represents a lidar revolution as ``List<ScanSegment>`` of ``Ray``
 objects with misses simply absent (BaseSLAM/ScanSegment.cs, Ray.cs;

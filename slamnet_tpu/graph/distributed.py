@@ -1,8 +1,9 @@
-"""Distributed pose-graph Gauss-Newton: edge-sharded normal equations over ICI.
+"""Distributed pose-graph Gauss-Newton: edge-sharded normal equations.
 
 The multi-host solve of BASELINE.json's north star: constraint edges are sharded
 over a mesh axis; every device accumulates the dense (H, b) contribution of its
-edge shard and the partials psum over ICI; the (small, dense) solve is replicated.
+edge shard and the partials psum across devices; the (small, dense) solve is
+replicated.
 Semantically identical to posegraph.gn_step (tests assert equality on the
 8-device CPU mesh).
 

@@ -9,12 +9,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-import jax
 import jax.numpy as jnp
 
 from ..core.geometry import normalize_angle, pose_between
 from ..core.scan import Scan
-from ..ops import bilinear, gn, logodds
+from ..ops import bilinear, gn, logodds, pallas_match
 
 
 class ScanMatchConfig(NamedTuple):
@@ -27,12 +26,12 @@ class ScanMatchConfig(NamedTuple):
     log_odds_occupied: float = 2.19722458
     inlier_prob: float = 0.6    # a query point "hits" if M(p) > this
     # production knobs (mirror HectorConfig; defaults keep the parity path):
-    # "gather" | "onehot_highest" (bit-identical, MXU) | "onehot_bf16" |
-    # "pallas" (whole match in one VMEM-resident kernel, ops/pallas_onehot)
+    # "gather" | "onehot_highest" (bit-identical one-hot matmuls) |
+    # "onehot_bf16" | "pallas" (whole match in one kernel, ops/pallas_match)
     matcher_mode: str = "gather"
     # scatter-free dense polar fill for the local grid (the loop-closure grid
     # build is a serialized ~B*len-cell scatter otherwise — the dominant cost
-    # of a keyframe event, docs/PERF.md)
+    # of a keyframe event, PERF.md)
     dense_fill: bool = False
     free_margin_px: float = 0.5
     # dense-fill free margin for the LOCAL grid.  Stays at the pre-round-5
@@ -95,34 +94,17 @@ def match_scans(scan_ref: Scan, scan_qry: Scan, init_rel,
     pose_px = jnp.stack([(init[0] + center[0]) * scale,
                          (init[1] + center[1]) * scale, init[2]])
     if cfg.matcher_mode == "pallas":
-        # the whole 20-iteration scan-to-scan match as one Pallas kernel with
-        # the local grid VMEM-resident (ops/pallas_onehot.py; a single-level
-        # pyramid IS a HectorConfig with num_levels=1)
-        from ..core.config import HectorConfig
-        from ..ops import pallas_onehot
-        hcfg = HectorConfig(map_resolution=cfg.resolution, map_size=s,
-                            num_levels=1,
-                            estimate_iterations=(cfg.gn_iterations,))
-        n = scan_qry.points.shape[0]
-        n_pad = -(-n // 8) * 8
-        pad = n_pad - n
-        Xq = jnp.pad(scan_qry.points[:, 0], (0, pad))[:, None]
-        Yq = jnp.pad(scan_qry.points[:, 1], (0, pad))[:, None]
-        Vq = jnp.pad(scan_qry.valid.astype(jnp.float32), (0, pad))[:, None]
-        tables = pallas_onehot.prepare_tables(grid, hcfg)
-        fn = pallas_onehot.make_pallas_match(
-            hcfg, n_pad, interpret=jax.default_backend() != "tpu")
-        pose_w0 = jnp.asarray([init[0] + center[0], init[1] + center[1],
-                               init[2]], jnp.float32)
-        pose0 = jnp.concatenate([pose_w0,
-                                 jnp.zeros(1, jnp.float32)]).reshape(1, 4)
-        out = fn(*tables, Xq, Yq, Vq, pose0)[0]
+        # the whole 20-iteration scan-to-scan match as one kernel
+        # (ops/pallas_match.py): a single-level pyramid over the local grid
+        level = pallas_match.Level(0, s, scale, cfg.gn_iterations)
+        hint = jnp.stack([init[0] + center[0], init[1] + center[1], init[2]])
+        out = pallas_match.match(grid, (level,), scan_qry.points[None, :, 0],
+                                 scan_qry.points[None, :, 1],
+                                 scan_qry.valid[None], hint[None])[0][0]
         pose_px = jnp.stack([out[0] * scale, out[1] * scale, out[2]])
     elif cfg.matcher_mode.startswith("onehot"):
-        # the grid is rebuilt per keyframe event (loop-variant operand): the
-        # one-hot MXU fetch sidesteps the gather wall exactly like the Hector
-        # matcher (ops/gn.py); a [s, s] grid IS already a row table
-        # (s=128 = one lane tile)
+        # the one-hot row fetch of the Hector matcher (ops/gn.py); a [s, s]
+        # grid IS already a row table
         table2d = grid.reshape(s, s)
         prec = ("highest" if cfg.matcher_mode == "onehot_highest"
                 else "default")

@@ -5,15 +5,15 @@ required by BASELINE.json's north star: keyframes + loop-closure constraints
 solved by distributed Gauss-Newton with Schur-complement reduction over
 collectives.
 
-Design (TPU-first):
+Design (accelerator-first):
 - fixed-capacity arrays: K node slots, E edge slots, validity masks (static
   shapes; adding a node/edge is a functional write at a counter index);
 - SE(2) relative-pose residuals with analytic Jacobians;
 - the normal equations are built DENSE: H is [3K, 3K] — for K <= a few thousand
-  this is exactly the regime where one MXU-backed dense solve beats sparse
-  scalar code, so dense-on-MXU *is* the idiomatic TPU formulation;
+  this is exactly the regime where one dense solve on the accelerator beats
+  sparse scalar code;
 - per-edge J^T W J contributions are scattered into H as 3x3 blocks; across
-  devices the edge axis shards and the dense partials psum over ICI
+  devices the edge axis shards and the dense partials psum across devices
   (graph/distributed.py);
 - gauge freedom fixed by a strong prior on node 0;
 - optional Schur-complement elimination of a node partition (solve_schur) —
@@ -173,7 +173,7 @@ def build_normal_equations(g: PoseGraph, anchor_weight: float = 1e6,
     full capacity — valid when num_nodes <= active_k (nodes are allocated in
     order, valid edges only reference valid nodes, invalid edge slots carry
     zero weight and index 0).  The assembly's zeros-init + block scatters
-    scale with the STATIC size, so gn_step buckets it (docs/PERF.md round 4)."""
+    scale with the STATIC size, so gn_step buckets it (PERF.md round 4)."""
     k = g.poses.shape[0] if active_k is None else active_k
     r, ji, jj = edge_residuals_and_jacobians(g.poses, g.edge_i, g.edge_j,
                                              g.edge_meas, g.edge_valid)
@@ -228,10 +228,9 @@ def _active_gn_dx(g: PoseGraph, anchor_weight: float, damping: float,
     rows carry an identity diagonal with zero b — so H is block-diagonal
     between the active prefix and the rest, and building + solving the
     top-left block alone is EXACT (the full solve's trailing dx is zero).
-    Both costs scale with the STATIC capacity: the dense LU is
-    panel-serialized on TPU, and the assembly's zeros-init + block scatters
-    touch [3K, 3K] memory (measured: the dominant graph-SLAM keyframe cost,
-    docs/PERF.md round 4).  A lax.switch over power-of-two bucket sizes makes
+    Both costs scale with the STATIC capacity: the dense LU and the
+    assembly's zeros-init + block scatters touch [3K, 3K] memory (measured
+    as the dominant graph-SLAM keyframe cost before this change).  A lax.switch over power-of-two bucket sizes makes
     both pay for the graph that actually exists; num_nodes is traced,
     buckets are static."""
     k = g.poses.shape[0]

@@ -3,7 +3,7 @@
 The reference has NO persistence — maps live only in RAM (SURVEY.md §5.4).  Here
 any framework state (CoreSlamState, HectorState, ParticleState, PoseGraphState —
 all NamedTuple pytrees of arrays) round-trips through orbax when available, with
-an npz fallback, enabling restart/recovery and the pod-scale resume story.
+an npz fallback, enabling restart/recovery and the multi-device resume story.
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ def save_sharded(path: str, state: Any, cfg: Any,
     """Checkpoint a SHARDED state (ShardedHectorState / ShardedCoreSlamState /
     ShardedGraphSlamState): densified host-side so the checkpoint is
     mesh-shape independent — a job restarted on a DIFFERENT device count
-    restores it with `restore_sharded` onto its own mesh (the pod-scale
+    restores it with `restore_sharded` onto its own mesh (the
     elastic-restart story, SURVEY.md §5.4)."""
     from ..models import coreslam_sharded, graph_slam_sharded, hector_sharded
 

@@ -11,7 +11,7 @@ field with the mouse while both SLAM pipelines track it live
 - background Scan() thread at lidar rate with a first-divergence
   debug dump                                             (:136-199)
 
-TPU-native equivalent: a stdlib ThreadingHTTPServer serving one HTML page.
+Equivalent here: a stdlib ThreadingHTTPServer serving one HTML page.
 The browser posts pose/heading/reset commands; a background thread runs the
 jitted Hector (and optionally CoreSLAM) step at the lidar scan rate; the
 page polls JSON state (map PNG + poses + rates) ~10x/s.  Zero dependencies:
@@ -44,12 +44,9 @@ class InteractiveSession:
 
     def __init__(self, platform: str = "cpu", run_coreslam: bool = True,
                  seed: int = 0, world: str = "default"):
-        import os
-        if platform == "cpu":
-            os.environ["JAX_PLATFORMS"] = "cpu"
+        from ..runtime import select_platform
+        select_platform(platform)
         import jax
-        if platform == "cpu":
-            jax.config.update("jax_platforms", "cpu")
         import jax.numpy as jnp
 
         from ..core import CoreSlamConfig, HectorConfig, SimConfig

@@ -1,12 +1,12 @@
 """CoreSLAM pipeline: functional state + one fused jitted step per scan.
 
-The TPU-native equivalent of CoreSLAMProcessor (CoreSLAM/CoreSLAMProcessor.cs):
+The array-program equivalent of CoreSLAMProcessor (CoreSLAM/CoreSLAMProcessor.cs):
 state is a pytree (maps + pose + counters + PRNG key); ``update`` is a pure
 function (state, segments) -> (state', info), jitted once and replayed per scan.
 The reference's 4-thread Monte-Carlo search with per-thread RNG queues
 (CoreSLAMProcessor.cs:674-710, 599-612) becomes one vmapped candidate batch scored
 in a fused kernel with jax.random keys split inside the jit — the RNG-prefill
-pipeline (P5 in SURVEY.md §2.5) is unnecessary on TPU because key splitting is free.
+pipeline (P5 in SURVEY.md §2.5) is unnecessary because key splitting is free.
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ as ONE shard_map'd SPMD program over a ('tile' x 'search') mesh:
     (the reference's thread-per-stream search, CoreSLAMProcessor.cs:674-710,
     as a mesh axis).  Candidates are sampled REPLICATED from the same key as
     the dense pipeline and sliced per shard, so the global argmin
-    (lexicographic min over (score, candidate index) across ICI) picks the
+    (lexicographic min over (score, candidate index) across devices) picks the
     IDENTICAL winner — bit-exact vs models/coreslam
     (tests/test_coreslam_sharded.py);
   * search_mode="correlative" (the PRODUCTION mode, ops/correlate.py): theta
@@ -211,7 +211,7 @@ def _dense_hole_fill_local(local_hole, size, rows_m, r0, scale, points, valid,
     cbin = jnp.clip(((jnp.arctan2(dy, dx) + jnp.pi)
                      * (angle_bins / (2.0 * jnp.pi))).astype(jnp.int32),
                     0, angle_bins - 1)
-    r_m = holemap_ops._onehot_lookup(table, cbin, angle_bins)
+    r_m = holemap_ops.polar_lookup(table, cbin)
     covered = r_c < r_m + hw2
     ramp = jnp.clip(1.0 - jnp.abs(r_c - r_m) / jnp.maximum(hw2, 1e-6),
                     0.0, 1.0)

@@ -1,15 +1,16 @@
 """Fleet serving: many independent SLAM instances batched on one chip.
 
-The production deployment mode with no reference counterpart: a server-side chip
+The production deployment mode with no reference counterpart: a server-side GPU
 tracks B robots at once.  Each instance has its own maps/pose; a 3-level
 400x400 Hector instance is ~1 MB of maps, so hundreds of instances fit in HBM.
 
-Split execution model (the round-2 throughput fix, docs/PERF.md):
+Split execution model (the round-2 throughput fix, PERF.md):
 
   * MATCHING is batched through ops/gn.fused_gn_iteration_batch: all instance
     pyramids view as ONE flat table so each GN iteration is a single
-    non-batched gather (a vmapped matcher's batched gather serializes per
-    instance on TPU — measured ~350 us/instance at B=64);
+    non-batched gather (a vmapped matcher's batched gather can lower to a
+    per-instance loop), or runs as one matcher-kernel program per instance
+    (matcher_mode="pallas", ops/pallas_match.py);
   * MAP UPDATES run as a lax.scan over the instance axis with a real lax.cond
     per instance.  Under vmap the motion gate lowers to select, so EVERY
     instance pays the serialized occupancy scatter EVERY scan (the round-1
@@ -31,7 +32,7 @@ import jax.numpy as jnp
 from ..core.config import HectorConfig
 from ..core.geometry import deg_diff, normalize_angle, rad_diff
 from ..core.scan import Scan
-from ..ops import gn
+from ..ops import gn, pallas_match
 from . import hector
 
 
@@ -41,7 +42,7 @@ def init_fleet(cfg: HectorConfig, start_poses) -> hector.HectorState:
     `maps` is carried FLAT as f32[B*C] (C = cells per instance pyramid,
     `fleet_cells(cfg)`): the matcher gathers with explicit b*C + idx indices,
     and a flat carry means the gather operand needs no per-iteration reshape/
-    relayout of the whole table (docs/PERF.md rule 1).  Use
+    relayout of the whole table (PERF.md rule 1).  Use
     `states.maps.reshape(B, -1)` for per-instance views.
     """
     start_poses = jnp.asarray(start_poses, jnp.float32)
@@ -65,8 +66,7 @@ def _match_batch(flat, cells, points, valid, hints, cfg: HectorConfig):
     Returns (poses f32[B, 3], MatchStats with [B]-shaped fields)."""
     b = points.shape[0]
     if cfg.match_subsample > 1:
-        # matcher-only beam subsampling (docs/PERF.md): map updates keep all
-        # beams, matching cost is gather-bound and drops ~k-fold
+        # matcher-only beam subsampling: map updates keep all beams
         points = points[:, ::cfg.match_subsample]
         valid = valid[:, ::cfg.match_subsample]
     n = points.shape[1]
@@ -79,44 +79,23 @@ def _match_batch(flat, cells, points, valid, hints, cfg: HectorConfig):
     else:
         X, Y, V = points[:, :, 0], points[:, :, 1], valid
 
+    any_valid = jnp.any(valid, axis=1)
     if cfg.matcher_mode == "pallas":
-        # whole coarse-to-fine match per instance in ONE kernel, grid over
-        # the instance axis, per-instance tables VMEM-resident across all
-        # GN iterations (ops/pallas_onehot.make_pallas_match_batch; the
-        # XLA batched one-hot path re-materializes masks + selected planes
-        # through HBM every iteration).  Semantics: bf16 one-hot selection,
-        # identical per instance to hector matcher_mode="pallas".
-        if cfg.early_exit_tol > 0.0:
-            raise ValueError("matcher_mode='pallas' runs fixed iterations; "
-                             "early_exit_tol is unsupported (fleet already "
-                             "measured batch-wide early-exit as a loss)")
-        from ..ops import pallas_onehot
-        tables = pallas_onehot.prepare_tables_batch(flat, b, cfg)
-        # grid-over-instances kernel (bit-identical per instance to the
-        # single-instance pallas matcher).  MEASURED NULL RESULT vs the XLA
-        # batched one-hot at B=64 (docs/PERF.md round 5: 5.70 vs 5.29
-        # ms/batch-scan match-only; the G-packed sublane-stacking variant,
-        # make_pallas_match_packed, was 6.67) — the XLA batched matmuls are
-        # already at the structural cost floor, so sub4_onehot remains the
-        # serving default and this mode exists for parity/completeness.
-        fn = pallas_onehot.make_pallas_match_batch(
-            cfg, pad, b, interpret=jax.default_backend() != "tpu")
-        pose0 = jnp.concatenate([hints, jnp.zeros((b, 1), jnp.float32)],
-                                axis=1)
-        out = fn(*tables, X.reshape(b * pad, 1), Y.reshape(b * pad, 1),
-                 V.astype(jnp.float32).reshape(b * pad, 1), pose0)
-        poses = out[:, :3]
+        # one kernel program per instance, all in parallel
+        # (ops/pallas_match.py; per instance the hector "pallas" match)
+        poses, fails, resid_sum, n_in = pallas_match.match(
+            flat, pallas_match.levels_of(cfg), X, Y, V, hints,
+            **pallas_match.solver_args(cfg))
         n_iters = sum(cfg.estimate_iterations[:cfg.num_levels])
-        n_valid = jnp.sum(V.astype(jnp.float32), axis=1)
         stats = hector.MatchStats(
-            residual=out[:, 4] / jnp.maximum(out[:, 5], 1.0),
+            residual=resid_sum / jnp.maximum(n_in, 1.0),
             iterations=jnp.full(b, n_iters, jnp.int32),
-            solve_failures=out[:, 3].astype(jnp.int32),
-            in_map_frac=out[:, 5] / jnp.maximum(n_valid, 1.0))
-        return poses, stats
+            solve_failures=fails,
+            in_map_frac=n_in / jnp.maximum(
+                jnp.sum(V.astype(jnp.float32), axis=1), 1.0))
+        return jnp.where(any_valid[:, None], poses, hints), stats
 
     estimate = hints
-    any_valid = jnp.any(valid, axis=1)
     ox, oy = cfg.offset
     iters = jnp.int32(0)
     fails = jnp.zeros(b, jnp.int32)
@@ -124,9 +103,8 @@ def _match_batch(flat, cells, points, valid, hints, cfg: HectorConfig):
     n_in = jnp.zeros(b, jnp.float32)
     onehot = cfg.matcher_mode.startswith("onehot")
     if onehot:
-        # per-level lane-padded [B, w_l, lanes_l] views per batch-scan;
-        # iterations then run batched one-hot matmuls on the MXU instead of
-        # the rate-limited batched-operand gather
+        # per-level padded [B, w_l, lanes_l] views per batch-scan;
+        # iterations then run batched one-hot matmuls
         # (ops/gn.fused_gn_iteration_batch_onehot)
         tables3d = gn.build_row_tables_batch(flat, b, cfg)
         prec = "highest" if cfg.matcher_mode == "onehot_highest" else "bf16"
@@ -238,9 +216,9 @@ def update_fleet(states: hector.HectorState, points, valid, cfg: HectorConfig,
     #
     # The scan carries ONLY the [cap, cells] chosen rows, NOT the whole
     # [B*cells] table: carrying the full table makes every slot's
-    # dynamic_update_slice a candidate full-table copy (measured ~3.3
-    # ms/batch-scan of machinery at B=64).  Chosen rows are row-gathered
-    # before and row-scattered after — 2*cap*cells of contiguous traffic.
+    # dynamic_update_slice a candidate full-table copy.  Chosen rows are
+    # row-gathered before and row-scattered after — 2*cap*cells of
+    # contiguous traffic.
     cap = min(b, cfg.fleet_update_capacity)
     order = jnp.argsort(~do_update, stable=True)      # firing instances first
     chosen = order[:cap].astype(jnp.int32)            # distinct indices
@@ -292,7 +270,7 @@ def replay_fleet(states: hector.HectorState, radii, valids, angles,
 
 # --------------------------- fleet over the mesh -----------------------------
 #
-# Pod-scale serving (VERDICT round-2 stretch): instances are independent, so
+# Multi-device serving: instances are independent, so
 # the instance axis shards embarrassingly — each device runs the single-chip
 # fleet on its B/S slice with its slice of the flat map table kept local (no
 # collectives at all).  Semantics: EXACTLY S independent local fleets; note

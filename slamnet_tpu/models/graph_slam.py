@@ -113,7 +113,7 @@ def _spawn_keyframe(state: GraphSlamState, scan: Scan, pose,
     g, looped = jax.lax.cond(has_cand, close_loop, no_loop, g)
 
     # optimize after every keyframe; each GN iteration is a dense [3K, 3K]
-    # solve — the dominant keyframe-event cost at K=256 (docs/PERF.md), so
+    # solve — the dominant keyframe-event cost at K=256 (PERF.md), so
     # the iteration budget is config (and may differ when a closure landed)
     if gcfg.optimize_iterations_loop != gcfg.optimize_iterations:
         g = jax.lax.cond(

@@ -1,8 +1,8 @@
 """Distributed graph-SLAM: the full north-star pipeline as ONE SPMD program.
 
 BASELINE.json north star: "pose-graph layer with loop closures solved by
-distributed Gauss-Newton ... with keyframes and map tiles sharded across a
-multi-host TPU pod slice".  models/graph_slam.py composes the DENSE pieces;
+distributed Gauss-Newton ... with keyframes and map tiles sharded across"
+devices.  models/graph_slam.py composes the DENSE pieces;
 this module composes the SHARDED ones — per scan, inside one shard_map over a
 ('tile' x 'search') mesh:
 

@@ -1,6 +1,6 @@
 """HectorSLAM pipeline: multi-resolution pyramid + coarse-to-fine Gauss-Newton.
 
-The TPU-native equivalent of HectorSLAMProcessor + MapRepMultiMap + ScanMatcher
+The array-program equivalent of HectorSLAMProcessor + MapRepMultiMap + ScanMatcher
 (HectorSLAM/Main/*.cs, Matcher/ScanMatcher.cs): state is a pytree holding one
 log-odds array per pyramid level; matching runs coarsest -> finest with statically
 unrolled GN iterations (the per-level counts are config), all inside ONE jitted
@@ -24,7 +24,7 @@ import numpy as np
 from ..core.config import HectorConfig
 from ..core.geometry import deg_diff, normalize_angle, rad_diff
 from ..core.scan import Scan
-from ..ops import gn, logodds
+from ..ops import gn, logodds, pallas_match
 
 
 class HectorState(NamedTuple):
@@ -126,8 +126,8 @@ def _pad_beams(x, pad_to: int, fill=0.0):
 
 
 def _lane_pad(n: int) -> int:
-    """Pad the beam axis to a multiple of 128 lanes — measured ~4x faster VPU
-    schedules than ragged widths on v5e."""
+    """Pad the beam axis to a multiple of 128 (the XLA matchers' shapes; the
+    matcher kernel pads further, to a power of two)."""
     return max(128, -(-n // 128) * 128)
 
 
@@ -137,9 +137,9 @@ def match(state_maps: jnp.ndarray, scan: Scan,
     coarsest level, per level run EstimateIterations GN steps in map coords,
     normalize heading, feed the estimate to the next-finer level.
 
-    Hot path: one concatenated flat table, lane-padded beam axis, fused GN
-    iterations (ops/gn.fused_gn_iteration) — ~16 us for a 15-iteration 3-level
-    match on one v5e chip.
+    Hot path: one concatenated flat table, padded beam axis, fused GN
+    iterations (ops/gn.fused_gn_iteration), or the whole match as one kernel
+    (matcher_mode="pallas", ops/pallas_match.py).
     """
     return match_with_stats(state_maps, scan, hint_pose_world, cfg)[0]
 
@@ -155,8 +155,7 @@ def match_with_stats(state_maps: jnp.ndarray, scan: Scan,
     pts = scan.points
     vld = scan.valid
     if cfg.match_subsample > 1:
-        # matcher-only beam subsampling (map updates keep every beam): the
-        # matcher is gather-rate-bound, so cost drops ~k-fold (docs/PERF.md)
+        # matcher-only beam subsampling (map updates keep every beam)
         pts = pts[::cfg.match_subsample]
         vld = vld[::cfg.match_subsample]
     pad = _lane_pad(pts.shape[0])
@@ -164,35 +163,23 @@ def match_with_stats(state_maps: jnp.ndarray, scan: Scan,
     Y = _pad_beams(pts[:, 1], pad)
     valid = _pad_beams(vld, pad, fill=False)
 
+    any_valid = jnp.any(scan.valid)
     if cfg.matcher_mode == "pallas":
-        # the whole coarse-to-fine match in ONE Pallas kernel with the
-        # pyramid tables VMEM-resident across all GN iterations
-        # (ops/pallas_onehot.py; bf16 onehot semantics, ATE-gated like
-        # every production mode).  interpret mode on non-TPU backends.
-        if cfg.early_exit_tol > 0.0:
-            raise ValueError(
-                "matcher_mode='pallas' runs fixed per-level iterations; "
-                "early_exit_tol is unsupported (and measured unnecessary — "
-                "see core/config.py matcher_mode docstring)")
-        from ..ops import pallas_onehot
-        tables = pallas_onehot.prepare_tables(table, cfg)
-        fn = pallas_onehot.make_pallas_match(
-            cfg, pad, interpret=jax.default_backend() != "tpu")
-        pose0 = jnp.concatenate([hint_pose_world,
-                                 jnp.zeros(1, jnp.float32)]).reshape(1, 4)
-        out = fn(*tables, X[:, None], Y[:, None],
-                 valid.astype(jnp.float32)[:, None], pose0)[0]
-        pose = out[:3]
-        n_valid = jnp.sum(valid.astype(jnp.float32))
+        # the whole coarse-to-fine match as ONE kernel (ops/pallas_match.py;
+        # the gather matcher's semantics, fixed per-level iterations)
+        poses, fails, resid_sum, n_in = pallas_match.match(
+            table, pallas_match.levels_of(cfg), X[None], Y[None], valid[None],
+            hint_pose_world[None], **pallas_match.solver_args(cfg))
+        pose = jnp.where(any_valid, poses[0], hint_pose_world)
         stats = MatchStats(
-            residual=out[4] / jnp.maximum(out[5], 1.0),
+            residual=resid_sum[0] / jnp.maximum(n_in[0], 1.0),
             iterations=jnp.int32(sum(cfg.estimate_iterations[:cfg.num_levels])),
-            solve_failures=out[3].astype(jnp.int32),
-            in_map_frac=out[5] / jnp.maximum(n_valid, 1.0))
+            solve_failures=fails[0],
+            in_map_frac=n_in[0] / jnp.maximum(
+                jnp.sum(valid.astype(jnp.float32)), 1.0))
         return pose, stats
 
     estimate = hint_pose_world
-    any_valid = jnp.any(scan.valid)
     ox, oy = cfg.offset
     iters = jnp.int32(0)
     fails = jnp.int32(0)
@@ -200,9 +187,9 @@ def match_with_stats(state_maps: jnp.ndarray, scan: Scan,
     n_in = jnp.float32(0.0)
     onehot = cfg.matcher_mode.startswith("onehot")
     if onehot:
-        # per-level lane-padded views, built once per match; GN iterations
-        # then run on the MXU instead of XLA's variant-operand gather
-        # (ops/gn.py) — each level pays only its own [w_l, lanes_l] matmul
+        # per-level padded views, built once per match; GN iterations then
+        # fetch rows by one-hot matmuls (ops/gn.py) — each level pays only
+        # its own [w_l, lanes_l] matmul
         tables = gn.build_row_tables(table, cfg)
         prec = "highest" if cfg.matcher_mode == "onehot_highest" else "bf16"
     for level in range(cfg.num_levels - 1, -1, -1):

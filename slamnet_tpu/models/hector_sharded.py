@@ -20,7 +20,7 @@ log-odds occupancy update — runs as ONE shard_map'd SPMD program over a
     per level — the ring-exchange pattern for grids.
 
 Per-tile memory layout: ONE flat local table (the sharded analogue of
-HectorState.maps — one gather operand for the hot loop, docs/PERF.md): for each
+HectorState.maps — one gather operand for the hot loop, PERF.md): for each
 level, rows_l*W owned cells then W halo cells.  Appending the halo row directly
 after the owned rows makes y-addressing contiguous: a bilinear read at the last
 owned row reaches the halo at base + W with no special case.
@@ -168,11 +168,11 @@ def _local_gn_reduce(local, loff, width, rows, r0, height, scale, pose_px,
     matmuls against this tile's [rows+1, width] level view (owned rows + the
     halo row) plus lane selects — the sharded twin of
     ops.gn.fused_gn_iteration_onehot_stats, so the multi-device pipeline has
-    the same MXU escape from the loop-variant gather wall as the single-chip
-    headline (docs/PERF.md).  "onehot_highest" selects entries exactly (1.0*x
+    the same one-hot form as the single-device matcher.  "onehot_highest"
+    selects entries exactly (1.0*x
     + exact zeros) and is bit-identical to the gather form
-    (tests/test_hector_sharded.py); "onehot_bf16" lets the MXU round the
-    table to bf16."""
+    (tests/test_hector_sharded.py); "onehot_bf16" rounds the table to
+    bf16."""
     sr = jnp.sin(pose_px[2]) * scale
     cr = jnp.cos(pose_px[2]) * scale
     mx = cr * X - sr * Y + pose_px[0]
@@ -415,6 +415,10 @@ def make_step(mesh: Mesh, cfg: HectorConfig, num_beams: int,
     Returns step(state, points f32[N,2], valid bool[N], force bool)
             -> (state, HectorInfo)  — same contract as models.hector.update.
     """
+    if cfg.matcher_mode == "pallas":
+        raise ValueError("matcher_mode='pallas' is single-device: the sharded "
+                         "matcher psums (H, dTr) every GN iteration; use "
+                         "'gather' or a one-hot mode")
     n_tiles = mesh.shape[tile_axis]
     n_search = mesh.shape[search_axis]
     pad = _beam_pad(num_beams, n_search)

@@ -1,4 +1,4 @@
-"""Batched particle SLAM — a TPU-only layer with no reference counterpart.
+"""Batched particle SLAM — a layer with no reference counterpart.
 
 BASELINE.json config 4: "8k-particle vmapped CoreSLAM scoring + top-k refine on
 one chip".  Where CoreSLAM perturbs one search pose (CoreSLAMProcessor.cs:624-653),
@@ -17,10 +17,10 @@ this layer maintains a persistent population of P pose hypotheses:
 
 Everything is fixed-shape and fused; a scan step is one jitted program.
 
-Scoring backends (ParticleConfig.scorer; measured in docs/PERF.md): "exact"
+Scoring backends (ParticleConfig.scorer; measured in PERF.md): "exact"
 runs the [P, N] gather batch above (the BASELINE config-4 contract; gather-
 rate bound at 8k particles); "grid" reuses the correlative count-grid x
-shifted-planes MXU scorer (ops/correlate) — one grid evaluation per scan,
+shifted-planes matmul scorer (ops/correlate) — one grid evaluation per scan,
 every particle reads its nearest (theta-bin, pixel-shift) cell, and the
 grid's sub-pixel argmin joins the top-k refine pool.  Beam strides
 (score_subsample / refine_subsample) trade gathers for precision coarse-to-
@@ -83,10 +83,10 @@ def _score(state, cfg: CoreSlamConfig, points, valid, poses):
 
 
 def _grid_score(state, ccfg: CoreSlamConfig, cloud: Scan, search, poses):
-    """Correlative population scoring: ONE MXU count-grid evaluation of the
+    """Correlative population scoring: ONE count-grid evaluation of the
     (theta-bin x pixel-shift) neighborhood around `search`, then every
     particle reads its nearest cell — replaces the [P, N] gather batch
-    (docs/PERF.md: the chained-gather wall) with a [P]-sized lookup.
+    with a [P]-sized lookup.
 
     Returns (eff i32[P] — int-max outside the grid, grid_pose f32[3],
     grid_sum i32): grid_pose is the sub-pixel refined grid argmin, injected
@@ -135,7 +135,7 @@ def update(state: ParticleState, cloud: Scan, odometry_pose,
 
     # 2. score the whole population in one fused batch ("exact": the
     #    config-4 [P, N] gather batch, optionally on a beam stride; "grid":
-    #    one correlative MXU grid + a [P] cell lookup — see _grid_score)
+    #    one correlative score grid + a [P] cell lookup — see _grid_score)
     ss = max(1, pcfg.score_subsample)
     if pcfg.scorer == "grid":
         eff, grid_pose, _ = _grid_score(state, ccfg, cloud,

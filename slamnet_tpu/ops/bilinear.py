@@ -2,7 +2,7 @@
 
 Reference: ScanMatcher.InterpMapValueWithDerivatives (ScanMatcher.cs:211-249) with
 OccGridMap.GetCachedProbability (OccGridMap.cs:97-107).  The reference's lazy
-per-cell probability cache is unnecessary on TPU: we gather the 4 log-odds cells and
+per-cell probability cache is unnecessary here: we gather the 4 log-odds cells and
 apply sigmoid inline (4 exps per point beat materializing a second map).
 
 GRADIENT QUIRK (reproduced intentionally): the reference — inheriting from upstream

@@ -1,4 +1,4 @@
-"""Correlative candidate search — the deterministic TPU-native CoreSLAM matcher.
+"""Correlative candidate search — the deterministic production CoreSLAM matcher.
 
 The reference's Monte-Carlo search (CoreSLAMProcessor.cs:624-653) samples
 continuous (x, y, theta) perturbations, but CalculateDistance snaps candidates to
@@ -10,12 +10,12 @@ duplicates.  This module scores the ENTIRE reachable pixel neighborhood instead:
 
 for K theta bins x a WxW window of integer pixel shifts — dense deterministic
 coverage of the same search region (a 2D-lidar analogue of Olson's correlative
-scan matching, reframed for the MXU):
+scan matching, reframed as a matrix product):
 
   1. per theta bin, snap the rotated cloud once and scatter point COUNTS into a
      zero-padded count grid (K*N updates — the only scatter, ~1% of the budget);
   2. materialize the W*W shifted copies of the (zero-padded) hole map;
-  3. scores = counts @ shifted_maps^T — one MXU matmul.  The map is split into
+  3. scores = counts @ shifted_maps^T — one matmul.  The map is split into
      hi/lo 8-bit planes so the f32 matmul is integer-EXACT (sums reach 26-bit).
 
 Zero padding reproduces the reference's out-of-bounds semantics exactly: an OOB
@@ -69,10 +69,9 @@ def correlative_scores(hole_map_flat: jnp.ndarray, size: int, scale: float,
     yb = csharp_trunc(py + s * X + c * Y)
 
     # count grids over the padded index range [-R, size + R): built as one-hot
-    # OUTER PRODUCTS on the MXU — cnt[k, y, x] = sum_p 1[yb_kp == y][xb_kp == x]
-    # — instead of a scatter-add (XLA TPU scatter serializes per update,
-    # ~27M updates/s; the K*N-update scatter was the search's dominant cost).
-    # Exact: each point contributes a single 1.0; sums stay < 2^24.
+    # OUTER PRODUCTS — cnt[k, y, x] = sum_p 1[yb_kp == y][xb_kp == x] —
+    # instead of a K*N-update scatter-add.  Exact: each point contributes a
+    # single 1.0; sums stay < 2^24.
     ok = (valid[None, :] & (xb >= -R) & (xb < size + R)
           & (yb >= -R) & (yb < size + R))
     grid_ids = jnp.arange(spad, dtype=xb.dtype)
@@ -110,12 +109,12 @@ def correlative_scores(hole_map_flat: jnp.ndarray, size: int, scale: float,
     hs = jnp.stack(shifts)                          # i32 [W*W, spad*spad]
 
     # integer-exact f32 matmul via 8-bit planes (hi*256 + lo; partial sums
-    # stay < 2^17 * N, well inside the f32 24-bit integer range; bf16 MXU
-    # rounding cannot touch 8-bit-plane integers).  Both planes stacked into
-    # ONE [2*W*W, ...] operand: one pass over the big loop-variant operand.
-    # (A lax.conv cross-correlation formulation was measured SLOWER: 1317 vs
-    # 2704 scans/s pipeline, and 50 at HIGHEST precision —
-    # scripts/bench_correlate_variants.py.)
+    # stay < 2^17 * N, well inside the f32 24-bit integer range; a TF32
+    # matmul keeps 8-bit-plane integers and per-cell point counts < 2048
+    # exact — chip_smoke.py checks the scores integer-exact on the card).
+    # Both planes stacked into ONE [2*W*W, ...] operand: one pass over the
+    # big loop-variant operand.  (A lax.conv cross-correlation formulation
+    # was measured slower — scripts/bench_correlate_variants.py.)
     w2 = window * window
     big = jnp.concatenate([(hs >> 8).astype(jnp.float32),
                            (hs & 0xFF).astype(jnp.float32)], axis=0)

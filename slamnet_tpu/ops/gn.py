@@ -3,8 +3,8 @@
 Reference: ScanMatcher.GetCompleteHessianDerivs + EstimateTransformationLogLh
 (ScanMatcher.cs:93-204).  The reference chunks beams over a thread pool and sums
 partial (H, dTr) on the host; here the accumulation is one masked sum over the
-beam axis (vmap semantics, MXU/VPU friendly) — the same reduction the beam-sharded
-multi-chip path later psums over ICI (SURVEY.md §2.5 P3).
+beam axis (vmap semantics) — the same reduction the beam-sharded multi-device
+path psums across devices (SURVEY.md §2.5 P3).
 
 The reference solves with a 4x4 inverse because .NET lacks 3x3 (README.md:33,
 ScanMatcher.cs:203 sets M44=1); here the 3x3 symmetric system is solved directly
@@ -60,8 +60,7 @@ def solve_gn_step(H: jnp.ndarray, dtr: jnp.ndarray,
     """Guarded symmetric 3x3 solve, rotation step clamped; zero step on failure.
 
     Vectorized via cross-products (adj(H) rows are cross products of H's rows):
-    ~8 tensor ops instead of ~25 scalar ops — measurable in the per-iteration
-    budget when XLA schedules ops individually (docs/PERF.md).
+    ~8 tensor ops instead of ~25 scalar ops.
     """
     adj = jnp.stack([jnp.cross(H[1], H[2]), jnp.cross(H[2], H[0]),
                      jnp.cross(H[0], H[1])])
@@ -77,9 +76,9 @@ def _solve_scalar(H00, H01, H02, H11, H12, H22, d0, d1, d2, clamp,
                   xy_clamp: float = 0.0, damping: float = 0.0):
     """solve_gn_step on unpacked scalars — same math, no stack/cross/matmul ops.
 
-    Measured ~23% faster per fused GN iteration than the stacked form (the hot
-    loop is tiny-op-scheduling bound, docs/PERF.md); kept private to the fused
-    matcher, the public solve_gn_step stays the readable API.
+    Fewer, simpler ops than the stacked form in a hot loop bound by op
+    scheduling; private to the fused matchers (and the kernel,
+    ops/pallas_match.py), the public solve_gn_step stays the readable API.
 
     damping > 0 is a Levenberg-style robustness extension (NOT in the
     reference): H's diagonal is scaled by (1 + damping), which shrinks the
@@ -128,15 +127,14 @@ def gn_iteration(logodds_flat, width, points, valid, pose_px, scale_to_map,
 # ---------------------------------------------------------------------------
 # Fused pyramid matcher — the production hot path.
 #
-# Same semantics as match-over-gn_iteration but engineered for the TPU VPU:
+# Same semantics as match-over-gn_iteration, as few fused ops as possible:
 #   * all pyramid levels live in ONE concatenated flat table, so every GN
 #     iteration is a single gather operand (XLA hoists the table prep once);
 #   * the 4 bilinear neighbors are ONE stacked [4, N] gather, not 4;
 #   * the 9 Hessian/residual sums are ONE fused [9, N] reduction;
-#   * the beam axis is padded to a lane-aligned width by the caller (512 for
-#     400-ray scans) — measured 3.9x faster than N=400 on v5e.
-# Measured: 16 us / 15-iteration 3-level match on one v5e chip (~62k scans/s)
-# vs ~1 ms for the unfused op-per-op formulation.
+#   * the beam axis is padded to a multiple of 128 by the caller (512 for
+#     400-ray scans).
+# The whole match as one kernel is ops/pallas_match.py (matcher_mode="pallas").
 # ---------------------------------------------------------------------------
 
 def _gn_coords(width, scale, pose_px, X, Y, valid):
@@ -151,10 +149,10 @@ def _gn_coords(width, scale, pose_px, X, Y, valid):
     return sr, cr, mx, my, ok, xi, yi
 
 
-def _gn_tail(v, mx, my, xi, yi, ok, X, Y, sr, cr, pose_px, deriv_clamp,
-             with_stats, xy_clamp, damping):
-    """From the 4 gathered neighbor probabilities v f32[4, N] to the solved
-    step — identical for every gather implementation."""
+def _gn_rows(v, mx, my, xi, yi, ok, X, Y, sr, cr, with_stats):
+    """Per-beam terms of the GN normal equations from the 4 bilinear
+    neighbor probabilities v[0..3]: the 9 (dTr, H) rows, plus the residual
+    and in-bounds rows when `with_stats`.  Shared by every matcher form."""
     fx = mx - xi
     fy = my - yi
     xf = 1.0 - fx
@@ -172,6 +170,14 @@ def _gn_tail(v, mx, my, xi, yi, ok, X, Y, sr, cr, pose_px, deriv_clamp,
             gy * gy, gy * rot, rot * rot]
     if with_stats:
         rows += [fun * fun, ok.astype(jnp.float32)]
+    return rows
+
+
+def _gn_tail(v, mx, my, xi, yi, ok, X, Y, sr, cr, pose_px, deriv_clamp,
+             with_stats, xy_clamp, damping):
+    """From the 4 gathered neighbor probabilities v f32[4, N] to the solved
+    step — identical for every gather implementation."""
+    rows = _gn_rows(v, mx, my, xi, yi, ok, X, Y, sr, cr, with_stats)
     red = jnp.stack(rows).sum(axis=1)
     d0, d1, d2, H00, H01, H02, H11, H12, H22 = red[:9]
     s0, s1, s2, solve_ok = _solve_scalar(H00, H01, H02, H11, H12, H22,
@@ -190,8 +196,7 @@ def _fused_gn_core(table, offset, width, scale, pose_px, X, Y, valid,
     when False the stats rows are never built (zero cost on the plain path).
 
     The 9 Hessian/residual sums run as ONE [9, N] stacked reduction and the
-    solve on unpacked scalars (_gn_tail) — measured faster than two small
-    matmuls + stacked solve (tiny-op bound, docs/PERF.md).  The stats rows are
+    solve on unpacked scalars (_gn_tail).  The stats rows are
     the matcher-health channel (ScanMatcher.cs:99-115 logging parity)."""
     sr, cr, mx, my, ok, xi, yi = _gn_coords(width, scale, pose_px, X, Y, valid)
     base = offset + yi * width + xi
@@ -202,28 +207,25 @@ def _fused_gn_core(table, offset, width, scale, pose_px, X, Y, valid,
 
 
 # ---------------------------------------------------------------------------
-# One-hot MXU gather variant.
+# One-hot matmul gather variant.
 #
-# XLA's TPU gather runs ~130M gathered elements/s when the table operand is
-# LOOP-VARIANT (the real pipeline: the map is a carried state) — measured
-# ~540 us per 15-iteration match at bench scale (scripts/bench_pallas_gn.py),
-# 30x the hoisted-operand cost.  This variant replaces the chained gather with
-# two one-hot ROW matmuls per iteration on the MXU (rows yi and yi+1 of a
-# per-level lane-padded table view built once per match) plus a lane-select:
-# the FLOPs are trivial for the MXU and nothing depends on the gather rate.
+# Written for an accelerator whose gather serialized on a loop-variant table
+# (the map is a carried state): the chained gather becomes two one-hot ROW
+# matmuls per iteration (rows yi and yi+1 of a per-level padded table view
+# built once per match) plus a lane-select.  On the GPU it is the slowest
+# matcher (PERF.md); it stays until a PR removes it with its bench rows.
 #
-# The row tables are PER LEVEL (round 4): a single stacked all-levels table
-# made every GN iteration pay [2N, 700] x [700, 512] regardless of level —
-# ~28x wasted MXU FLOPs at the 100-px level (VERDICT r03 weak #3).  The
-# pyramid loop unrolls at trace time, so each level multiplies against its
-# own [w_l, lanes_l] table (lanes_l = w_l rounded up to 128 lanes) instead.
+# The row tables are PER LEVEL: a single stacked all-levels table made every
+# GN iteration pay [2N, 700] x [700, 512] regardless of level.  The pyramid
+# loop unrolls at trace time, so each level multiplies against its own
+# [w_l, lanes_l] table (lanes_l = w_l rounded up to 128) instead.
 #
 # Exactness: a one-hot row selects a single table entry (1.0*x plus exact
 # zeros), so with full-precision matmuls the selected neighbor values — and
 # therefore the whole match — are BIT-IDENTICAL to the take()-based kernel
-# (tests/test_hector_ops.py); `precision="default"` instead lets the MXU
-# round the table to bf16 (fast path; ~0.4% value noise, ATE-gated in
-# bench.py before it can become the headline).
+# (tests/test_hector_ops.py); `precision="default"` instead rounds the table
+# to bf16 (~0.4% value noise, ATE-gated in bench.py before it can become the
+# headline).
 # ---------------------------------------------------------------------------
 
 def level_lanes(width: int) -> int:
@@ -249,7 +251,7 @@ def fused_gn_iteration_onehot_stats(table2d: jnp.ndarray, row_off: int,
                                     xy_clamp: float = 0.0,
                                     damping: float = 0.0,
                                     precision: str = "highest"):
-    """fused_gn_iteration_stats with the gather as one-hot MXU matmuls.
+    """fused_gn_iteration_stats with the gather as one-hot matmuls.
 
     table2d: ONE level's row table (build_row_tables output; row_off=0), or
     any [R, lanes] view with this level's rows starting at row_off."""
@@ -259,11 +261,8 @@ def fused_gn_iteration_onehot_stats(table2d: jnp.ndarray, row_off: int,
     lanes = table2d.shape[1]
 
     # bf16 mode builds the one-hot masks (and table operand) in bf16: 0/1 are
-    # exact in bf16 and the MXU rounds the table anyway, so semantics are
-    # unchanged while the mask materialization (the kernel's real cost — far
-    # above the MXU floor) moves half the bytes (measured +1.3% headline,
-    # scripts/bench_onehot_variants.py; a take_along_axis lane select on the
-    # FRESH sel operand measured 35% SLOWER — the gather wall again)
+    # exact in bf16 and the table is rounded anyway, so semantics are
+    # unchanged while the mask materialization moves half the bytes
     oh_dt = jnp.float32 if precision == "highest" else jnp.bfloat16
     ry = row_off + yi
     rsel = jnp.concatenate([ry, ry + 1])                      # [2N]
@@ -319,9 +318,8 @@ def fused_gn_iteration_batch(flat: jnp.ndarray, cells: int, offset: int,
     per-iteration loop forces a relayout of the whole table per GN step);
     poses_px f32[B, 3]; X/Y f32[B, N]; valid bool[B, N].
 
-    NOT a vmap of fused_gn_iteration: a vmapped (batched-operand) gather lowers
-    to a serialized per-instance loop on TPU (measured ~350 us/instance at
-    B=64, docs/PERF.md).  The bilinear neighbors are ONE non-batched [4, B, N]
+    NOT a vmap of fused_gn_iteration: a vmapped (batched-operand) gather can
+    lower to a per-instance loop.  The bilinear neighbors are ONE non-batched [4, B, N]
     gather with explicit b*cells + idx indices — the same lowering that makes
     the unbatched matcher fast.  Returns (new_poses f32[B,3], solve_ok bool[B],
     resid_sum f32[B], n_in f32[B]).
@@ -389,10 +387,8 @@ def fused_gn_iteration_batch_onehot(table3d: jnp.ndarray, row_off: int,
     """fused_gn_iteration_batch with the gather as batched one-hot matmuls.
 
     table3d: ONE level's build_row_tables_batch output f32[B, w_l, lanes_l]
-    (row_off=0), or any [B, R, lanes] view.  The batched
-    (per-instance) matmul keeps the MXU busy where the batched-operand gather
-    is rate-limited (~130M elem/s, docs/PERF.md) — the fleet-matcher version
-    of the single-instance one-hot trick."""
+    (row_off=0), or any [B, R, lanes] view — the fleet version of the
+    single-instance one-hot form."""
     b = poses_px.shape[0]
     total_rows = table3d.shape[1]
     lanes = table3d.shape[2]

@@ -4,7 +4,7 @@ Reference: UpdateHoleMap + DrawLaserRayOnHoleMap (CoreSLAMProcessor.cs:496-534,
 359-443).  Each beam is alpha-blended along a Bresenham walk with a V-shaped value
 profile (free space at TS_NO_OBSTACLE ramping into the "hole" at the measured hit).
 
-TPU-native formulation: the walk + profile come from the exact closed forms in
+Array formulation: the walk + profile come from the exact closed forms in
 ops/rasterize (one dense [beams, steps] tensor), and the sequential per-pixel blend
 ``p' = ((256-a)p + a*v) >> 8`` becomes a scatter with an analytically composed
 multi-visit blend:
@@ -86,46 +86,12 @@ def update_hole_map(hole_map_flat: jnp.ndarray, size: int, scale: float,
     return jnp.where(robot_in, new, hole_map_flat)
 
 
-_LOOKUP_SHIFT = 1024.0      # admits table values in [-1024, 3072)
-_LOOKUP_K = 4096.0          # quantization: 1/4096 of a table unit
-
-
-def _onehot_lookup(table: jnp.ndarray, idx: jnp.ndarray,
-                   n_bins: int) -> jnp.ndarray:
-    """table[idx] for a SMALL table and a large index field, as a one-hot
-    matmul instead of a gather: XLA's TPU gather runs ~130M indices/s (the
-    dense fills' dominant cost, docs/PERF.md), while materializing the
-    [cells, n_bins] one-hot and contracting it on the MXU is plain
-    bandwidth/matmul work.
-
-    The table rides as THREE bf16-exact INTEGER bit-slices (8 bits each of
-    the shifted value quantized to 1/4096 of a unit) rather than a float
-    hi/lo split: a float residual ``table - bf16(table)`` is silently ZEROED
-    on TPU — XLA's bf16-propagation pass sees its only consumer is a bf16
-    convert, evaluates the subtraction in bf16, and bf16(x) - bf16(x) == 0
-    (caught on-chip by scripts/check_pallas_parity.py: the lo matmul column
-    came back identically zero; optimization_barrier does not stop that
-    pass).  Integer arithmetic is outside the pass's reach, every slice is
-    <= 255 (exact in bf16), and the f32 recombination is exact — total
-    error <= 2.5e-4 of a unit.
-
-    Domain: values in [-_LOOKUP_SHIFT, 3 * _LOOKUP_SHIFT); anything below
-    (e.g. the dense fills' -1e9 "uncovered sector" sentinel) clips to the
-    domain floor and reconstructs as -_LOOKUP_SHIFT — still far below any
-    geometric threshold, so sentinel semantics are preserved."""
-    oh = (idx[..., None] == jnp.arange(n_bins, dtype=idx.dtype)).astype(
-        jnp.bfloat16)
-    q = jnp.clip((table + _LOOKUP_SHIFT) * _LOOKUP_K,
-                 0.0, 2.0 ** 24 - 1).astype(jnp.int32)
-    t3 = jnp.stack([(q >> 16).astype(jnp.float32),
-                    ((q >> 8) & 255).astype(jnp.float32),
-                    (q & 255).astype(jnp.float32)], axis=1)
-    sel = jnp.dot(oh.reshape(-1, n_bins), t3.astype(jnp.bfloat16),
-                  preferred_element_type=jnp.float32)      # [cells, 3]
-    out = (sel[:, 0] * (65536.0 / _LOOKUP_K)
-           + sel[:, 1] * (256.0 / _LOOKUP_K)
-           + sel[:, 2] * (1.0 / _LOOKUP_K) - _LOOKUP_SHIFT)
-    return out.reshape(idx.shape)
+def polar_lookup(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """table[idx]: every cell's value from its scan's small polar-sector
+    table — the per-cell lookup of all three dense fills (occupancy, hole,
+    obstacle) and of the sharded CoreSLAM fill.  One gather, exact for any
+    range (PERF.md has the measurement against the one-hot form)."""
+    return jnp.take(table, idx)
 
 
 def update_hole_map_dense(hole_map_flat: jnp.ndarray, size: int, scale: float,
@@ -134,9 +100,8 @@ def update_hole_map_dense(hole_map_flat: jnp.ndarray, size: int, scale: float,
                           angle_bins: int = 256) -> jnp.ndarray:
     """Scatter-free hole-map update: the V-profile as a dense polar field.
 
-    XLA TPU scatter serializes per index (~27M updates/s measured), and the line
-    formulation above scatters ~2 x beams x size elements per scan — several ms,
-    the CoreSLAM pipeline bottleneck (docs/PERF.md).  The swept region of one
+    The line formulation above scatters ~2 x beams x size elements per scan.
+    The swept region of one
     scan is star-shaped around the robot and the reference's V-profile value at
     a cell is (in radial terms) a pure function of (cell range - beam range):
 
@@ -148,7 +113,7 @@ def update_hole_map_dense(hole_map_flat: jnp.ndarray, size: int, scale: float,
 
     so instead of rasterizing beam lines we (1) scatter the B beam ranges into an
     `angle_bins` polar min-range table (a B-point scatter — cheap) and (2) blend
-    EVERY cell against its sector's profile — pure dense VPU work.
+    EVERY cell against its sector's profile — pure dense elementwise work.
 
     SEMANTIC DIFFERENCES vs the line mode (documented, opt-in via
     CoreSlamConfig.dense_hole_fill): cells BETWEEN diverging beams also receive
@@ -180,10 +145,9 @@ def update_hole_map_dense(hole_map_flat: jnp.ndarray, size: int, scale: float,
     table = jnp.full(angle_bins, big, jnp.float32).at[
         jnp.where(beam_ok, bins, 0)].min(jnp.where(beam_ok, dist, big))
     # encode "no beam in this sector" as -big IN the range table: the per-cell
-    # pass then needs ONE 65k-index gather instead of two (range + has_beam) —
-    # the cell pass is gather-rate-bound (~130M gathered elem/s on v5e,
-    # docs/PERF.md), so this halves its dominant cost.  r_m = -big makes
-    # `covered` false exactly where has_beam was false (r_c >= 0 > -big+hw2).
+    # pass then needs ONE lookup instead of two (range + has_beam).  r_m =
+    # -big makes `covered` false exactly where has_beam was false
+    # (r_c >= 0 > -big+hw2).
     table = jnp.where(table < big, table, -big)
 
     # dense per-cell pass (cell centers at +0.5 in continuous pixel space)
@@ -195,7 +159,7 @@ def update_hole_map_dense(hole_map_flat: jnp.ndarray, size: int, scale: float,
     cbin = jnp.clip(((jnp.arctan2(dy, dx) + jnp.pi)
                      * (angle_bins / (2.0 * jnp.pi))).astype(jnp.int32),
                     0, angle_bins - 1)
-    r_m = _onehot_lookup(table, cbin, angle_bins)
+    r_m = polar_lookup(table, cbin)
     covered = r_c < r_m + hw2
 
     # V-profile value at radial distance r_c

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.geometry import dotnet_round
+from .holemap import polar_lookup
 from .rasterize import hector_line_cells
 
 
@@ -83,7 +84,7 @@ def update_occupancy_dense(logodds_flat: jnp.ndarray, width: int,
                            free_margin_px: float = 0.75) -> jnp.ndarray:
     """Scatter-free occupancy update: free space as a dense polygon fill.
 
-    XLA's TPU scatter serializes (docs/PERF.md), which dominates mapping-heavy
+    The line fill scatters ~B*len cells per scan, which dominates mapping-heavy
     workloads (fleet mode, update-every-scan).  The free region of one scan is
     star-shaped around the robot, so instead of rasterizing B beam lines we:
 
@@ -91,7 +92,7 @@ def update_occupancy_dense(logodds_flat: jnp.ndarray, width: int,
          (a B-point scatter — cheap);
       2. for EVERY cell compute (range, angle) to the robot and mark it free iff
          its range is under the table entry for its angle bin minus
-         `free_margin_px` — pure dense VPU.
+         `free_margin_px` — pure dense elementwise work.
 
     SEMANTIC DIFFERENCE vs the reference (documented, opt-in): beam lines mark
     only the ~B*len cells ON the Bresenham lines; the dense fill marks the whole
@@ -106,10 +107,10 @@ def update_occupancy_dense(logodds_flat: jnp.ndarray, width: int,
     one-cell ridge with strongly-free neighbors — the matcher's convergence
     basin narrows, and one bad hint (an odometry slip) locks onto a false
     minimum it never leaves.  Measured on the adversarial 180-degree log
-    (slips + dropout, docs/PERF.md): margin 0.5 px -> 0.208 m rms (6x worse
+    (slips + dropout, PERF.md): margin 0.5 px -> 0.208 m rms (6x worse
     than line mode); 0.75 (default) -> 0.038; 1.5 -> 0.021; 2.0 -> 0.015.
     The default is the largest value holding the CLEAN bench's strict ATE
-    gate (margin sweep, docs/PERF.md round 5); raise to 1.5-2.0 for
+    gate (margin sweep, PERF.md round 5); raise to 1.5-2.0 for
     degraded sensors.  The margin leaves a moat of unknown cells in front
     of measured surfaces instead of freeing them.
     """
@@ -152,17 +153,7 @@ def update_occupancy_dense(logodds_flat: jnp.ndarray, width: int,
     cang = jnp.arctan2(dy, dx)
     cbin = jnp.clip(((cang + jnp.pi) * (angle_bins / (2.0 * jnp.pi)))
                     .astype(jnp.int32), 0, angle_bins - 1)
-    if jax.default_backend() == "tpu":
-        # table[cbin] as a one-hot MXU matmul with the bf16x2-split table
-        # (ops/holemap._onehot_lookup): XLA's TPU gather serializes per
-        # element (~1.6 ms for a 400-px level at ~130M elem/s); the one-hot
-        # contraction is plain bandwidth/matmul work.  Round-5 ladder:
-        # gather 1818 -> select-sweep 968 -> one-hot 346 us per 400x400
-        # update (docs/PERF.md); headline 4941 -> 6343 scans/s.
-        from .holemap import _onehot_lookup
-        r_lim = _onehot_lookup(table, cbin, angle_bins)
-    else:
-        r_lim = jnp.take(table, cbin)       # CPU: gather is the fast path
+    r_lim = polar_lookup(table, cbin)
     is_free_img = (r_cell < r_lim - free_margin_px) & (r_cell > 0.0)
 
     # occupied endpoints: a B-point scatter (cheap)

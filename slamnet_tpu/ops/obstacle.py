@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.geometry import csharp_trunc
-from .holemap import _onehot_lookup
+from .holemap import polar_lookup
 from .rasterize import rosetta_line_cells
 
 
@@ -86,7 +86,7 @@ def update_obstacle_map_dense(obstacle_map: jnp.ndarray, size: int,
 
     Same rationale and caveat as ops/holemap.update_hole_map_dense /
     ops/logodds.update_occupancy_dense: the line mode scatters ~beams x 2 x size
-    elements per scan (serialized by XLA TPU); the swept free region is
+    elements per scan; the swept free region is
     star-shaped, so cells strictly nearer than their sector's shortest beam
     decay toward zero — marking the whole swept polygon instead of only the
     Bresenham lines (documented divergence, opt-in via
@@ -121,9 +121,8 @@ def update_obstacle_map_dense(obstacle_map: jnp.ndarray, size: int,
     big = jnp.float32(1e9)
     table = jnp.full(angle_bins, big, jnp.float32).at[
         jnp.where(beam_ok, bins, 0)].min(jnp.where(beam_ok, dist, big))
-    # "no beam" encoded as -big in the range table: one gather instead of two
-    # (range + has_beam) — the per-cell pass is gather-rate-bound
-    # (ops/holemap.py has the same optimization, docs/PERF.md)
+    # "no beam" encoded as -big in the range table: one lookup per cell
+    # instead of two (range + has_beam), as in ops/holemap.py
     table = jnp.where(table < big, table, -big)
 
     yy = jax.lax.broadcasted_iota(jnp.int32, (size, size), 0)
@@ -136,7 +135,7 @@ def update_obstacle_map_dense(obstacle_map: jnp.ndarray, size: int,
                     0, angle_bins - 1)
     # strictly before the endpoint cell (the line mode's intermediate cells);
     # r_m = -big makes `traversed` false exactly where no beam hit the sector
-    traversed = (r_c < _onehot_lookup(table, cbin, angle_bins) - 0.5).reshape(-1)
+    traversed = (r_c < polar_lookup(table, cbin) - 0.5).reshape(-1)
 
     v0 = obstacle_map.reshape(-1).astype(jnp.int32)
     v1 = jnp.minimum(v0 + hit_cnt, jnp.maximum(v0, max_hits))

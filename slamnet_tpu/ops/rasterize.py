@@ -1,4 +1,4 @@
-"""Closed-form line rasterization — the TPU-native replacement for Bresenham walks.
+"""Closed-form line rasterization — the array replacement for Bresenham walks.
 
 The reference marches rays cell-by-cell with integer error accumulators:
 
@@ -12,8 +12,7 @@ Sequential per-cell walks are hostile to XLA.  All three error recurrences are
 knocked down by D whenever it crosses a threshold — whose overflow count after n
 steps has an exact closed form (``staircase_count``).  The visited cell at step k is
 therefore a pure function of k, so an entire scan rasterizes as one dense
-``[beams, MAX_STEPS]`` tensor computation: no loops, no scatter ordering, full VPU
-utilization.  Exactness vs the reference recurrences is enforced by
+``[beams, MAX_STEPS]`` tensor computation: no loops, no scatter ordering.  Exactness vs the reference recurrences is enforced by
 tests/test_rasterize.py against step-by-step numpy goldens.
 
 All functions are batched over beams (leading axis) and safe under jit/vmap.

@@ -1,6 +1,6 @@
 """Monte-Carlo candidate scoring against the hole map — CoreSLAM's hot loop #1.
 
-TPU-native reframing of MonteCarloSearch + CalculateDistanceSISD
+Array reframing of MonteCarloSearch + CalculateDistanceSISD
 (CoreSLAMProcessor.cs:624-653, 226-259): the reference perturbs the SAME search pose
 `iterations` times per thread and keeps the argmin, so N threads x M iterations is
 *distributionally identical* to one batch of N*M independent candidates scored at

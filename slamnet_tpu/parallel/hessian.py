@@ -1,9 +1,9 @@
 """Beam-sharded Gauss-Newton accumulation — sequence parallelism over the scan.
 
-The TPU-native scaling of Hector's chunked (H, dTr) reduction
+The multi-device scaling of Hector's chunked (H, dTr) reduction
 (ScanMatcher.cs:149-196): the reference splits beams across worker threads and
 host-sums partials; here beams are sharded over the 'beam' mesh axis and the 3x3
-Hessian + residual partials are psum'd over ICI — the 2D-SLAM analogue of
+Hessian + residual partials are psum'd across devices — the 2D-SLAM analogue of
 sequence parallelism (SURVEY.md §5.7a).
 """
 from __future__ import annotations

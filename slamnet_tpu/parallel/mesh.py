@@ -1,8 +1,9 @@
 """Device-mesh construction helpers.
 
 The reference's entire "distributed backend" is a hand-rolled thread pool
-(BaseSLAM/ParallelWorker.cs); the TPU-native replacement is a jax.sharding.Mesh
-with named axes and XLA collectives over ICI (SURVEY.md §2.5, §5.8).
+(BaseSLAM/ParallelWorker.cs); here it is a jax.sharding.Mesh with named axes
+and XLA collectives between devices (SURVEY.md §2.5, §5.8).  The mesh shape
+follows the algorithm alone: every device reaches every other at one rate.
 
 Axis conventions used across the framework:
   'search' — data parallelism over Monte-Carlo candidates / particles (P2)
@@ -16,7 +17,6 @@ from typing import Mapping, Sequence
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
@@ -28,12 +28,8 @@ def make_mesh(axes: Mapping[str, int], devices: Sequence | None = None) -> Mesh:
     names = tuple(axes.keys())
     shape = tuple(axes.values())
     if devices is None:
-        n = int(np.prod(shape))
-        devices = jax.devices()[:n]
-        dev_mesh = mesh_utils.create_device_mesh(shape, devices=devices)
-    else:
-        dev_mesh = np.asarray(devices).reshape(shape)
-    return Mesh(dev_mesh, names)
+        devices = jax.devices()[:int(np.prod(shape))]
+    return Mesh(np.asarray(devices).reshape(shape), names)
 
 
 def initialize_multihost(coordinator_address: str | None = None,
@@ -41,10 +37,10 @@ def initialize_multihost(coordinator_address: str | None = None,
                          process_id: int | None = None) -> None:
     """Multi-host bring-up: jax.distributed.initialize with env fallbacks.
 
-    On a pod slice each host calls this before any jax op; afterwards
-    jax.devices() spans the slice and make_mesh() lays axes over ICI/DCN.
-    Args default to the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID environment (or cloud auto-detection when all None).
+    Each host calls this before any jax op; afterwards jax.devices() spans
+    every process and make_mesh() lays axes over all of them.  Pass all
+    three arguments where nothing tells JAX of the cluster (a plain GPU
+    host: coordinator_address="localhost:<port>").
     Single-host CI exercises the same mesh code via
     xla_force_host_platform_device_count (tests/conftest.py).
     """
@@ -54,9 +50,9 @@ def initialize_multihost(coordinator_address: str | None = None,
 
 
 def host_local_scans_to_global(mesh: Mesh, local_batch, axis: str):
-    """Per-host scan feeding over DCN: assemble a global array whose `axis`
+    """Per-host scan feeding: assemble a global array whose `axis`
     dimension is sharded across processes from each host's local batch
-    (SURVEY.md §5.8 P6 — the scan-ingestion handoff at pod scale)."""
+    (SURVEY.md §5.8 P6 — the scan-ingestion handoff across hosts)."""
     from jax.sharding import PartitionSpec
     return jax.make_array_from_process_local_data(
         NamedSharding(mesh, PartitionSpec(axis)), local_batch)

@@ -1,10 +1,10 @@
 """Sharded Monte-Carlo candidate search — data parallelism over candidates.
 
-The TPU-native scaling of CoreSLAM's ParallelMonteCarloSearch
+The multi-device scaling of CoreSLAM's ParallelMonteCarloSearch
 (CoreSLAMProcessor.cs:674-710): the reference forks N threads each scoring its own
 candidate stream and the host argmin-reduces; here the candidate batch is sharded
 over the 'search' mesh axis, every device scores its shard in the fused kernel,
-and the global argmin is one (min, argmin-select) collective pair over ICI.
+and the global argmin is one (min, argmin-select) collective pair.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ def sharded_monte_carlo_search(mesh: Mesh, hole_map_flat: jnp.ndarray,
         local_best = eff[li]
         local_pose = cands[li]
 
-        # global argmin over ICI: min-reduce the score, then broadcast the
+        # global argmin across devices: min-reduce the score, then broadcast the
         # owning shard's pose (first shard wins ties, like the host loop)
         gmin = jax.lax.pmin(local_best, axis)
         is_best = (local_best == gmin)

@@ -86,7 +86,7 @@ def office_field() -> Field:
     The world spans ~36 m while the benchmark Hector map covers 20 m, so a
     room tour OUTRUNS the map: scan-to-map tracking (which in a persistent
     global map acts as implicit loop closure — measured net-neutral
-    docs/PERF.md) gets no purchase in rooms B/C/D, and explicit pose-graph
+    PERF.md) gets no purchase in rooms B/C/D, and explicit pose-graph
     loop closures against stored keyframe scans are the only mechanism that
     can correct the accumulated odometry drift.  Room A (the start) is fully
     inside the map with margin; see scripts/bench_office_graph.py."""

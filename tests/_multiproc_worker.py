@@ -2,12 +2,12 @@
 
 Spawned by tests/test_multiprocess.py (2 OS processes, CPU backend, 4 virtual
 devices each).  Each process:
-  1. brings up the cluster via parallel.initialize_multihost (the pod-scale
+  1. brings up the cluster via parallel.initialize_multihost (the multi-host
      entry point — jax.distributed.initialize under the hood);
   2. builds a ('tile' x 'search') mesh over all 8 GLOBAL devices, laid out so
      the 'search' (beam) axis SPANS the two processes — each process then
      feeds only ITS half of every scan's beam axis through
-     parallel.host_local_scans_to_global (per-host scan ingestion over DCN,
+     parallel.host_local_scans_to_global (per-host scan ingestion,
      SURVEY.md §5.8 P6);
   3. runs hector_sharded steps (row-tiled pyramid + beam-sharded (H,dTr)
      psums + halo ppermutes — now crossing the process boundary over Gloo)

@@ -60,7 +60,7 @@ def test_compat_hector_reference_surface():
 
 
 def test_compat_hector_matcher_mode():
-    # the production MXU matcher is reachable from the OO surface;
+    # the one-hot matcher is reachable from the OO surface;
     # onehot_highest tracks exactly like the default gather matcher
     def drive(mode):
         proc = compat.HectorSLAMProcessor(0.1, 400, (20.0, 20.0, 0.0), 3, 4,

@@ -127,7 +127,7 @@ def test_dense_fill_survives_adversarial_log():
     # (slips, dropout, drifting odometry) replayed with the dense fill stays
     # within 1.5x of line-fill ATE.  At margin 0.5 (the round-4 behavior)
     # walls erode and a slip locks the matcher into a false minimum (0.208
-    # rms, 6x line); the default free margin fixes it (docs/PERF.md).
+    # rms, 6x line); the default free margin fixes it (PERF.md).
     import os
     import dataclasses
     from slamnet_tpu.io import datasets
@@ -179,3 +179,20 @@ def test_dense_fill_survives_adversarial_log():
     assert rms_line < 0.06, rms_line              # the known-good baseline
     assert rms_dense < 1.5 * rms_line, (rms_dense, rms_line)
     assert max_dense < max_line, (max_dense, max_line)   # slips absorbed
+
+
+def test_polar_lookup_equals_take_at_any_range():
+    """The one lookup every dense fill uses is table[idx], exactly: ranges
+    far above 3072 px and the -1e9 "no beam" sentinel come back unchanged
+    (the removed one-hot form clipped both)."""
+    from slamnet_tpu.ops import holemap
+    rng = np.random.default_rng(0)
+    table = rng.uniform(-50.0, 20000.0, 256).astype(np.float32)
+    table[::9] = -1e9
+    table[5] = 3072.0
+    table[6] = 123456.75
+    idx = rng.integers(0, 256, (160, 160)).astype(np.int32)
+    got = np.asarray(jax.jit(holemap.polar_lookup)(jnp.asarray(table),
+                                                   jnp.asarray(idx)))
+    np.testing.assert_array_equal(got, np.take(table, idx))
+    assert got.dtype == np.float32 and got.shape == idx.shape

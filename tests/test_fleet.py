@@ -120,7 +120,7 @@ def test_gn_damping_default_is_parity_and_positive_damps():
 
 
 def test_fleet_over_mesh_equals_local_fleets():
-    # pod-scale serving (stretch): B instances sharded over 8 devices must
+    # multi-device serving: B instances sharded over 8 devices must
     # equal 8 INDEPENDENT local fleets of B/8 run unsharded (instances don't
     # interact; the phase-3 update budget applies per shard by design)
     import pytest
@@ -184,9 +184,9 @@ def test_fleet_over_mesh_equals_local_fleets():
 
 
 def test_fleet_onehot_matcher_identical_to_gather():
-    # batched one-hot MXU gather == batched take() gather, bit-for-bit (on
-    # CPU matmuls are exact f32; on TPU the "highest" precision mode is the
-    # exact one — bench.py ATE-gates the bf16 fast path)
+    # batched one-hot gather == batched take() gather, bit-for-bit (on
+    # CPU matmuls are exact f32; on the GPU the "highest" precision mode is
+    # the exact one — bench.py ATE-gates the bf16 fast path)
     import dataclasses
     cfg = HectorConfig(num_levels=2, map_size=128, estimate_iterations=(5, 4),
                        map_resolution=0.3125)
@@ -228,12 +228,10 @@ def test_fleet_onehot_matcher_identical_to_gather():
 
 
 def test_fleet_pallas_matcher_matches_per_instance_pallas():
-    # the batched Pallas matcher is a grid over instances reusing the
-    # single-instance kernel body with IDENTICAL block shapes, so each
-    # instance's match must be bit-for-bit the per-instance hector pallas
-    # match (interpret mode on CPU); the G-packed variant (kept as a
-    # measured null result, docs/PERF.md round 5) must agree to float
-    # summation order
+    # the fleet runs the matcher kernel with one program per instance, so
+    # each instance's match must be bit-for-bit the per-instance hector
+    # pallas match (interpret mode on CPU), and agree with the batched
+    # gather matcher to float summation order
     import dataclasses
     cfg = HectorConfig(num_levels=2, map_size=128, estimate_iterations=(5, 4),
                        map_resolution=0.3125)
@@ -265,7 +263,8 @@ def test_fleet_pallas_matcher_matches_per_instance_pallas():
 
     key, sub = jax.random.split(key)
     pts, valid = scans(sub)
-    pcfg = dataclasses.replace(cfg, matcher_mode="pallas", match_subsample=2)
+    gcfg = dataclasses.replace(cfg, match_subsample=2)
+    pcfg = dataclasses.replace(gcfg, matcher_mode="pallas")
     hints = states.match_pose + jnp.asarray([[0.1, -0.05, 0.02]] * b,
                                             jnp.float32)
     poses_b, stats_b = fleet._match_batch(states.maps, fleet.fleet_cells(cfg),
@@ -279,38 +278,21 @@ def test_fleet_pallas_matcher_matches_per_instance_pallas():
                                       np.asarray(pose_i))
         assert int(stats_b.solve_failures[i]) == int(st_i.solve_failures)
 
+    poses_g, stats_g = fleet._match_batch(states.maps, fleet.fleet_cells(cfg),
+                                          pts, valid, hints, gcfg)
+    np.testing.assert_allclose(np.asarray(poses_b), np.asarray(poses_g),
+                               atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(stats_b.solve_failures),
+                                  np.asarray(stats_g.solve_failures))
+
     # and the full fleet step runs end-to-end with the pallas matcher
     st2, info = fleet.update_fleet(states, pts, valid, pcfg)
     assert np.isfinite(np.asarray(st2.match_pose)).all()
 
-    # the G-packed sublane-stacking variant (measured null result on TPU,
-    # kept with its writeup): same selection semantics, segment-matmul
-    # reductions — agrees to float summation order
-    from slamnet_tpu.ops import pallas_onehot
-    sub = pts[:, ::2]
-    vsub = valid[:, ::2]
-    pad = hector._lane_pad(sub.shape[1])
-    Xp = jnp.concatenate([sub[:, :, 0],
-                          jnp.zeros((b, pad - sub.shape[1]))], axis=1)
-    Yp = jnp.concatenate([sub[:, :, 1],
-                          jnp.zeros((b, pad - sub.shape[1]))], axis=1)
-    Vp = jnp.concatenate([vsub, jnp.zeros((b, pad - sub.shape[1]), bool)],
-                         axis=1)
-    tables = pallas_onehot.prepare_tables_batch(states.maps, b, pcfg)
-    fn = pallas_onehot.make_pallas_match_packed(pcfg, pad, b, g_pack=4,
-                                                interpret=True)
-    pose0 = jnp.concatenate([hints, jnp.zeros((b, 1))], axis=1)
-    outp = fn(*tables, Xp.reshape(-1, 1).astype(jnp.float32),
-              Yp.reshape(-1, 1).astype(jnp.float32),
-              Vp.astype(jnp.float32).reshape(-1, 1),
-              pose0.astype(jnp.float32))
-    np.testing.assert_allclose(np.asarray(outp[:, :3]), np.asarray(poses_b),
-                               atol=2e-3)
-
 
 def test_serving_profile_encodes_measured_defaults():
     # the fleet-serving profile is the measured ablation's conclusion
-    # (docs/PERF.md; VERDICT r04 item 6): damping on, guards on, sub4 +
+    # (PERF.md; VERDICT r04 item 6): damping on, guards on, sub4 +
     # one-hot matcher, uncapped updates
     from slamnet_tpu.core import serving_hector_config
     cfg = serving_hector_config()

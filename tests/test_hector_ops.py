@@ -137,7 +137,7 @@ def test_occupancy_cap_blocks_further_occupied():
 
 
 def test_onehot_matcher_identical_to_gather():
-    # the one-hot MXU gather variant must pick IDENTICAL neighbor values, so
+    # the one-hot gather variant must pick IDENTICAL neighbor values, so
     # the whole match is bit-identical to the take()-based matcher
     import dataclasses
     import jax

@@ -142,10 +142,10 @@ def test_tile8_padded_rows_equal_dense():
 
 
 def test_onehot_matcher_modes():
-    # the sharded one-hot MXU matcher (matcher_mode="onehot_highest"): the
+    # the sharded one-hot matcher (matcher_mode="onehot_highest"): the
     # one-hot row matmuls against the [rows+1, width] tile view must select
     # entries EXACTLY, so the whole sharded replay is BIT-identical to the
-    # sharded gather matcher; onehot_bf16 (MXU-rounded table) must stay within
+    # sharded gather matcher; onehot_bf16 (bf16-rounded table) must stay within
     # match tolerance of it.
     import dataclasses
     n = 24
@@ -217,3 +217,13 @@ def test_bench_trajectory_replay_tracks_dense():
     diff = np.abs(np.asarray(hector_sharded.unshard_maps(sh, CFG))
                   - np.asarray(dense.maps))
     assert diff.max() < 1e-2, diff.max()
+
+
+def test_pallas_matcher_is_single_device():
+    # the matcher kernel runs a whole match per program; the sharded matcher
+    # psums (H, dTr) every iteration, so it refuses the mode instead of
+    # silently running another matcher
+    import dataclasses
+    with pytest.raises(ValueError, match="single-device"):
+        hector_sharded.make_step(
+            _mesh(), dataclasses.replace(CFG, matcher_mode="pallas"), 400)
